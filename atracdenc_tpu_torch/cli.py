@@ -1,21 +1,30 @@
-"""Command-line driver of the PyTorch port (ATRAC3 encode).
+"""Command-line entry point of the PyTorch port (ATRAC1 encode / decode, ATRAC3
+encode).
 
+    python -m atracdenc_tpu_torch.cli -e atrac1 [--bfuidxconst N]
+        [--notransient[=mask]] [--exact] -i in.wav -o out.{aea,raw}
+    python -m atracdenc_tpu_torch.cli -d -i in.aea -o out.wav
     python -m atracdenc_tpu_torch.cli -e atrac3 [--bitrate N]
         [--nogaincontrol] [--notonal] [--bfuidxconst N]
         -i in.wav -o out.{oma,at3,wav,rm}
 
-Takes the ATRAC3 options of ``atracdenc_tpu/cli.py``.  The other codecs,
-decoding, ``--exact`` and ``--yaml-log`` are not ported yet and exit 1.
-``--device cpu`` runs the kernels' plain versions (for tests); the
-default is CUDA.
+Takes the options of ``atracdenc_tpu/cli.py`` for these codecs.  ATRAC3+,
+decoding anything but AEA, ``--exact`` for ATRAC3 and ``--yaml-log`` are
+not ported yet and exit 1.  ``--device cpu`` runs the kernels' plain
+versions (for tests); the default is CUDA.  Decoding runs the shared
+exact-semantics decoder on the host, as the JAX CLI does.
 """
 import argparse
 import os
 import sys
 
+import numpy as np
+
 CODECS = ("atrac1", "atrac3", "atrac3_lp4", "atrac3plus")
-_PORTED = ("atrac3", "atrac3_lp4")
-_CONTAINERS = {"oma", "riff", "rm", "raw"}
+# codec -> allowed containers (reference main.cpp:168-194), ported codecs
+_CONTAINERS = {"atrac1": {"aea", "raw"},
+               "atrac3": {"oma", "riff", "rm", "raw"},
+               "atrac3_lp4": {"oma", "riff", "rm", "raw"}}
 _EXT_CONTAINER = {".aea": "aea", ".oma": "oma", ".aa3": "oma", ".at3": "riff",
                   ".wav": "riff", ".rm": "rm"}
 
@@ -23,51 +32,133 @@ _EXT_CONTAINER = {".aea": "aea", ".oma": "oma", ".aa3": "oma", ".at3": "riff",
 def build_parser():
     p = argparse.ArgumentParser(
         prog="atracdenc-tpu-torch",
-        description="ATRAC3 encoder on PyTorch / CUDA")
+        description="ATRAC1 / ATRAC3 codec on PyTorch / CUDA")
     p.add_argument("-e", "--encode", nargs="?", const="atrac1", metavar="codec",
-                   help="encode mode; codec: atrac3 or atrac3_lp4 "
-                        "(atrac1 and atrac3plus are not ported yet)")
+                   help="encode mode; codec: atrac1 (default), atrac3 or "
+                        "atrac3_lp4 (atrac3plus is not ported yet)")
     p.add_argument("-d", "--decode", action="store_true",
-                   help="decode mode (not ported yet)")
+                   help="decode mode (AEA / ATRAC1)")
     p.add_argument("-i", "--in", dest="infile", required=True)
     p.add_argument("-o", "--out", dest="outfile", required=True)
     p.add_argument("--bitrate", type=int, default=0, help="kbit/s (ATRAC3)")
     p.add_argument("--container", choices=("aea", "oma", "riff", "rm", "raw"))
     p.add_argument("--bfuidxconst", type=int, default=0)
+    p.add_argument("--notransient", nargs="?", const="", metavar="mask")
     p.add_argument("--nostdout", action="store_true")
     p.add_argument("--notonal", action="store_true")
     p.add_argument("--nogaincontrol", action="store_true")
-    p.add_argument("--exact", action="store_true", help="not ported yet")
+    p.add_argument("--exact", action="store_true",
+                   help="ATRAC1 encode: the reference-float-semantics host "
+                        "path (byte-identical to the reference binary)")
     p.add_argument("--yaml-log", dest="yaml_log", help="not ported yet")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda (default) or cpu (the kernels' plain versions)")
     return p
 
 
+def _merge_channel_planes(planes):
+    """[C, F, ...] planes -> frame-major stream order [F*C, ...]."""
+    return {k: np.swapaxes(np.asarray(v), 0, 1).reshape((-1,) + v.shape[2:])
+            for k, v in planes.items()}
+
+
+def _split_channel_planes(planes, channels):
+    """Stream order [F*C, ...] -> [C, F, ...] (drops ``valid``)."""
+    return {k: v.reshape((v.shape[0] // channels, channels) + v.shape[1:])
+            .swapaxes(0, 1) for k, v in planes.items() if k != "valid"}
+
+
+def encode_atrac1(args):
+    from atracdenc_tpu_torch.shared import (aea, at1_exact_enc, at1_frame,
+                                            audio, operator_log, progress, raw)
+
+    pcm, rate = audio.read(args.infile)
+    if rate != 44100:
+        sys.exit("Unsupported sample rate. Only 44100Hz is supported now")
+    channels, total = pcm.shape
+    if args.bfuidxconst and not (1 <= args.bfuidxconst <= 8):
+        sys.exit("Wrong bfuidxconst value (1...8)")
+    window_mode, window_mask = "auto", 0
+    if args.notransient is not None:
+        window_mode = "fixed"
+        window_mask = int(args.notransient) if args.notransient else 0
+    on_progress = None
+    if not args.nostdout:
+        print(f"Input file: {args.infile}\n Channels: {channels}\n "
+              f"SampleRate: {rate}\n Duration (sec): {total // rate}")
+        on_progress = progress.print_progress
+
+    opts = dict(bfu_idx_const=args.bfuidxconst, window_mode=window_mode,
+                window_mask=window_mask)
+    if args.exact:
+        planes = at1_exact_enc.encode_track_exact(pcm, **opts)
+    else:
+        from atracdenc_tpu_torch.models.atrac1.encoder import encode_track
+        planes = encode_track(pcm, progress=on_progress, device=args.device,
+                              **opts)
+        operator_log.warn_clipping(planes, pop=True)
+    frames = at1_frame.pack(_merge_channel_planes(planes))
+    if args.container == "aea":
+        aea.write(args.outfile, frames, channels, total)
+    else:
+        raw.write(args.outfile, frames)
+
+
+def decode_atrac1(args):
+    from atracdenc_tpu_torch.shared import aea, at1_frame, audio
+    from atracdenc_tpu_torch.models.atrac1.decoder import decode_track
+
+    try:
+        frames, channels, title, length = aea.read(args.infile)
+    except aea.AeaFormatError as err:
+        sys.exit(f"Encode/Decode error: {err}")
+    if not args.nostdout:
+        print(f"Input file: {args.infile}\n Name: {title}\n Channels: {channels}")
+    n = (frames.shape[0] // channels) * channels
+    pcm = decode_track(_split_channel_planes(at1_frame.unpack(frames[:n]),
+                                             channels))
+    if length:
+        pcm = pcm[:, :length]
+    audio.write(args.outfile, pcm, 44100)
+
+
+def _dispatch(args):
+    if args.decode:
+        with open(args.infile, "rb") as fp:
+            magic = fp.read(4)
+        if magic[:3] in (b"ea3", b"EA3") or magic in (b"RIFF", b".RMF"):
+            sys.exit("Decoding ATRAC3 / ATRAC3+ is not ported to "
+                     "atracdenc_tpu_torch yet; use atracdenc_tpu.cli")
+        decode_atrac1(args)
+        return
+    codec = args.encode
+    if codec not in CODECS:
+        sys.exit(f"Unknown codec: {codec}")
+    if codec not in _CONTAINERS:
+        sys.exit(f"{codec} is not ported to atracdenc_tpu_torch yet; "
+                 "use atracdenc_tpu.cli")
+    if args.yaml_log or (args.exact and codec != "atrac1"):
+        sys.exit("--yaml-log and --exact for ATRAC3 are not ported to "
+                 "atracdenc_tpu_torch yet; use atracdenc_tpu.cli")
+    ext = os.path.splitext(args.outfile)[1].lower()
+    default = "aea" if codec == "atrac1" else "oma"
+    container = args.container or _EXT_CONTAINER.get(ext, default)
+    if container not in _CONTAINERS[codec]:
+        sys.exit(f"Container '{container}' is not supported for {codec}")
+    args.container = container
+    if codec == "atrac1":
+        encode_atrac1(args)
+    else:
+        from atracdenc_tpu_torch.models.atrac3.cli_glue import encode_file
+        encode_file(args, lp4=codec == "atrac3_lp4")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if bool(args.encode) == bool(args.decode):
         sys.exit("Select mode: encode or decode")
-    if args.decode:
-        sys.exit("Decoding is not ported to atracdenc_tpu_torch yet; "
-                 "use atracdenc_tpu.cli")
-    if args.encode not in CODECS:
-        sys.exit(f"Unknown codec: {args.encode}")
-    if args.encode not in _PORTED:
-        sys.exit(f"{args.encode} is not ported to atracdenc_tpu_torch yet; "
-                 "use atracdenc_tpu.cli")
-    if args.exact or args.yaml_log:
-        sys.exit("--exact and --yaml-log are not ported to "
-                 "atracdenc_tpu_torch yet; use atracdenc_tpu.cli")
-    ext = os.path.splitext(args.outfile)[1].lower()
-    container = args.container or _EXT_CONTAINER.get(ext, "oma")
-    if container not in _CONTAINERS:
-        sys.exit(f"Container '{container}' is not supported for {args.encode}")
-    args.container = container
-
-    from atracdenc_tpu_torch.models.atrac3.cli_glue import encode_file
     try:
-        encode_file(args, lp4=args.encode == "atrac3_lp4")
+        _dispatch(args)
     except OSError as err:
         sys.exit(f"IO fatal error: {err}")
 

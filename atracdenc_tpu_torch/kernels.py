@@ -6,9 +6,10 @@ The library is built on first use into ``.build/atracdenc_tpu_torch/``
 beside the package, named by a hash of the sources so an edit rebuilds.
 
 Flags: ``-fmad=false`` keeps every ``a*b + c`` a separate multiply and add,
-as the plain PyTorch versions and XLA compute it (kernel C's allocation
-``spread*(csfi/xdiv) + (1-spread)*fix - shift`` would otherwise change in
-the last bit); no ``--use_fast_math``, so division and rounding are IEEE.
+as the plain PyTorch versions and XLA compute it (the allocations of
+kernels C and E, ``spread*(sfi/div) + (1-spread)*fix - shift``, would
+otherwise change in the last bit); no ``--use_fast_math``, so division and
+rounding are IEEE.
 """
 import ctypes
 import functools
@@ -22,7 +23,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), ".build", "atracdenc_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +37,10 @@ _SIGNATURES = {
     #  t_active, t_pos, t_len, t_bfu, t_vlc, fix, xdiv,
     #  wl_out, num_bfu_out, mode_out, n, auto, stream)
     "atrac3_rate_control": [_P] * 19 + [_I, _I, _P],
+    # (sfi, energy, short_flags, loud, ath, fix_long, fix_short, band, specs,
+    #  amount, boost_bits, boost_pos, n_boost, wl_out, idx_out, n,
+    #  bfu_idx_const, stream)
+    "atrac1_allocate": [_P] * 12 + [_I, _P, _P, _I, _I, _P],
 }
 
 
@@ -59,11 +64,12 @@ def library_path():
         with open(s, "rb") as fp:
             h.update(os.path.basename(s).encode() + fp.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libatrac3_kernels_{h.hexdigest()[:12]}.so")
+    return os.path.join(BUILD_DIR, f"libatracdenc_kernels_{h.hexdigest()[:12]}.so")
 
 
 def build(verbose=False):
-    """Compile csrc/*.cu into the shared library (if not yet built).
+    """Compile csrc/*.cu into the shared library (if not yet built): one
+    ``nvcc -c`` per source, all started together, then one link.
 
     Returns (path, seconds spent compiling; 0.0 when already built).
     verbose=True adds ``-Xptxas -v`` and prints nvcc's report (registers,
@@ -72,19 +78,37 @@ def build(verbose=False):
     if os.path.exists(out):
         return out, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    cu = [s for s in sources() if s.endswith(".cu")]
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) \
-        + ["-o", tmp] + cu
+    nvcc = _nvcc()
+    tmp = f"{out}.{os.getpid()}"
+    extra = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    dt = time.perf_counter() - t0
-    if verbose and (res.stdout or res.stderr):
-        print(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    return out, dt
+    jobs = []
+    for src in (s for s in sources() if s.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        jobs.append((obj, subprocess.Popen(
+            [nvcc] + NVCC_FLAGS + extra + ["-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    objs, failed = [], []
+    for obj, proc in jobs:
+        report = proc.communicate()[0]
+        if verbose and report:
+            print(report)
+        objs.append(obj)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{report}")
+    if not failed:
+        res = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                              "-shared", "-o", f"{tmp}.so"] + objs,
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            failed.append(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    os.replace(f"{tmp}.so", out)
+    return out, time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=None)

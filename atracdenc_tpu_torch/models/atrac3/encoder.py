@@ -5,6 +5,7 @@ src/atrac3denc.cpp:679-867): QMF analysis (4 bands) -> [gain control] ->
 windowed MDCT with gain modulation -> loudness IIR -> [tonal extraction] ->
 block-floating scale -> quantisation-cost memo -> rate control ->
 mantissas.  The output is a dict of fixed-shape integer planes that the
+device packer (``device_pack.py``, through ``encode_frames_bytes``) or the
 JAX package's host packer (``atracdenc_tpu/models/atrac3/frame.py``)
 serialises into sound units.
 
@@ -20,7 +21,7 @@ import torch
 from atracdenc_tpu_torch.shared import tables as T
 from atracdenc_tpu_torch import runtime
 from atracdenc_tpu_torch.ops import psy, scale as scale_ops
-from . import filterbank, gain, specblocks, tonal
+from . import device_pack, filterbank, gain, specblocks, tonal
 from .bitalloc import allocate, final_mantissas, quant_tensors
 from .mdct import first_level_scale, gain_divisors, mdct_frames
 
@@ -76,6 +77,18 @@ def encode_frames(pcm, frame_bytes=384, js=False, no_gain_control=True,
                                     no_gain_control, no_tonal, bfu_idx_const,
                                     use_rate_kernel)
     return planes
+
+
+def encode_frames_bytes(pcm, frame_bytes=384, js=False, no_gain_control=True,
+                        no_tonal=True, bfu_idx_const=0, use_rate_kernel=True):
+    """[C, T] PCM -> [F, frame_bytes] uint8 frames, or [S, C, T] -> [S, F,
+    frame_bytes], packed on the device: byte-identical to ``frame.pack`` of
+    ``encode_frames``, and only the frame bytes leave the device."""
+    planes = encode_frames(pcm, frame_bytes, js, no_gain_control, no_tonal,
+                           bfu_idx_const, use_rate_kernel)
+    if pcm.dim() == 3:
+        return device_pack.pack_device_batch(planes, frame_bytes, js)
+    return device_pack.pack_device(planes, frame_bytes, js)
 
 
 def encode_frames_chunk(pcm, state=None, next_pcm=None, frame_bytes=384,

@@ -1,9 +1,9 @@
 """Psychoacoustic helpers: ATH, loudness curve and the loudness IIR.
 
-Port of the ATRAC3 parts of ``atracdenc_tpu/ops/psy.py`` (reference
-src/atrac/atrac_psy_common.{h,cpp}).  The table builders are numpy; the
-per-frame loudness recurrence is the encoder's one true sequential
-dependency and runs as a loop of f32 ops in frame order.
+Port of ``atracdenc_tpu/ops/psy.py`` for the ATRAC3 and ATRAC1 encoders
+(reference src/atrac/atrac_psy_common.{h,cpp}).  The table builders are
+numpy; the per-frame loudness recurrence is each encoder's one true
+sequential dependency and runs as a loop of f32 ops in frame order.
 """
 import numpy as np
 import torch
@@ -76,7 +76,8 @@ def create_loudness_curve(sz):
 def track_loudness_scan(l0, l1, use_both, use_one, init):
     """Per-frame loudness IIR over the last axis (frames).
 
-    l0, l1 [..., F] f32, use_both / use_one [F] bool, init [...] f32.
+    l0, l1 [..., F] f32, use_both / use_one [F] or [..., F] bool (ATRAC1
+    gates them per stream by its window modes), init [...] f32.
       if use_both: L = 0.98 L + 0.01 (l0 + l1)
       elif use_one: L = 0.98 L + 0.02 l0
     Returns the post-update loudness per frame [..., F].
@@ -91,6 +92,6 @@ def track_loudness_scan(l0, l1, use_both, use_one, init):
     carry = carry.expand(l0.shape[:-1])
     out = []
     for k in range(l0.shape[-1]):
-        carry = a[k] * carry + b[..., k]
+        carry = a[..., k] * carry + b[..., k]
         out.append(carry)
     return torch.stack(out, dim=-1)

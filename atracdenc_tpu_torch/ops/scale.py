@@ -1,12 +1,12 @@
-"""Block-floating scaler: per-BFU scale-factor search.
+"""Block-floating scaler: per-BFU scale-factor search and mantissas.
 
-Port of ``atracdenc_tpu/ops/scale.py::scale_blocks`` (reference
+Port of ``atracdenc_tpu/ops/scale.py`` (reference
 src/atrac/atrac_scale.cpp:134-188): the scale-factor index is a lower_bound
 over the 64-entry float32 scale table, written as a comparison count.
 """
 import torch
 
-__all__ = ["scale_blocks"]
+__all__ = ["scale_blocks", "quant_mantissas"]
 
 
 def scale_blocks(values, valid_mask, scale_table):
@@ -27,3 +27,15 @@ def scale_blocks(values, valid_mask, scale_table):
     scaled = torch.where(torch.abs(scaled) >= 1.0, clipped, scaled)
     energy = torch.sum(values * values * mask, dim=-1)
     return sfi, scaled * mask, energy
+
+
+def quant_mantissas(scaled, wordlen):
+    """Round-half-even mantissas (lrint under FE_TONEAREST, reference
+    src/util.h:98-109, atrac1_bitalloc.cpp:307-317); ``torch.round`` rounds
+    half to even like ``jnp.round``.
+
+    scaled [..., n_bfu, maxlen] in (-1, 1), wordlen [..., n_bfu] int 0 /
+    2..16 -> int32 mantissas, zero where wordlen < 2."""
+    multiple = ((1 << (torch.clamp(wordlen, min=1) - 1)) - 1).to(scaled.dtype)
+    mant = torch.round(scaled * multiple[..., None]).to(torch.int32)
+    return torch.where((wordlen >= 2)[..., None], mant, 0)

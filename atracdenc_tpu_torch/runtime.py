@@ -40,9 +40,9 @@ def canonical(a) -> np.ndarray:
 
 def to_torch(a, dev) -> torch.Tensor:
     """numpy (or scalar) -> tensor on ``dev`` with JAX's canonical dtypes."""
-    a = np.ascontiguousarray(canonical(a))
-    if not a.flags.writeable:
-        a = a.copy()
+    a = canonical(a)              # keeps 0-d (ascontiguousarray makes 1-d)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = a.copy(order="C")
     return torch.from_numpy(a).to(dev)
 
 
@@ -59,9 +59,11 @@ def _map(tree, fn):
 
 
 def state_from_numpy(state, dev):
-    """Chunk carry (``encoder.init_state`` layout: gain, mdct_prev,
-    next_overlap, loudness, pcm_tail) from numpy arrays — e.g. the JAX
-    encoder's state after ``jax.device_get`` — to tensors on ``dev``."""
+    """Chunk carry from numpy arrays — e.g. a JAX encoder's state after
+    ``jax.device_get`` — to tensors on ``dev``.  Takes either encoder's
+    layout: ATRAC3 ``{gain: {...}, mdct_prev, next_overlap, loudness,
+    pcm_tail}`` (``models/atrac3/encoder.init_state``) or ATRAC1
+    ``{pcm_tail, loud}`` (``models/atrac1/encoder.encode_frames_chunk``)."""
     return _map(state, lambda a: to_torch(a, dev))
 
 

@@ -2,12 +2,16 @@
 
     python -m atracdenc_tpu_torch.trace_encode [--out PATH.json]
 
-Encodes the bench corpus (seed 42, 997 Hz tone + noise, 64 streams x 256
-stereo frames, default mode: the shape of chip_smoke.py and bench.py) once
-to warm up, then
-  1. times each encoder stage with the device synchronised around it
-     (stage wall times, which add up to the synchronised encode time);
-  2. profiles one unsynchronised encode with torch.profiler: wall time,
+Traces two paths on the bench corpus (seed 42, 997 Hz tone + noise):
+  * ATRAC3, the main path: 64 streams x 256 stereo frames, default mode,
+    encode + device packer (``encode_frames_bytes``), the shape of
+    chip_smoke.py and bench.py's AT3 leg;
+  * ATRAC1, bench.py's AT1 leg: 8 streams x 2 ch x 512 frames, encode +
+    device packer.
+Each is run once to warm up, then
+  1. each stage is timed with the device synchronised around it (stage
+     wall times, which add up to the synchronised time);
+  2. one unsynchronised run is profiled with torch.profiler: wall time,
      summed kernel time (device busy), the device's idle share, and the
      kernels with the most device time.
 Writes the numbers as JSON to --out and prints a summary.  Needs CUDA.
@@ -23,6 +27,7 @@ import torch
 from atracdenc_tpu_torch import kernels
 
 STREAMS, FRAMES = 64, 256
+AT1_STREAMS, AT1_FRAMES = 8, 512
 
 
 def _corpus(streams, nframes, dev):
@@ -36,24 +41,9 @@ def _corpus(streams, nframes, dev):
     return torch.from_numpy(pcm.astype(np.float32)).to(dev)
 
 
-def _stage_times(x, encode):
-    """Wrap the encoder's stages with synchronised timers; returns ms per
-    stage for one encode."""
-    from atracdenc_tpu_torch.models.atrac3 import encoder, gain, tonal
-    from atracdenc_tpu_torch.ops import psy, scale
-
-    stages = [(encoder, "band_frames", "qmf bands"),
-              (gain, "gain_control", "gain control"),
-              (gain, "energy_scale", "gain energy scale"),
-              (encoder, "mdct_frames", "mdct"),
-              (psy, "track_loudness_scan", "loudness IIR"),
-              (tonal, "flatness_per_bfu", "tonal flatness"),
-              (tonal, "extract", "tonal extract"),
-              (tonal, "scale_groups", "tonal scale"),
-              (scale, "scale_blocks", "scale"),
-              (encoder, "quant_tensors", "quant memo (A, B)"),
-              (encoder, "allocate", "rate control (C)"),
-              (encoder, "final_mantissas", "final mantissas (B)")]
+def _stage_times(x, encode, stages):
+    """Wrap the stages (module, name, label) with synchronised timers;
+    returns ms per stage for one run."""
     ms = {}
     saved = []
     depth = [0]                  # a stage called inside another is not split out
@@ -88,28 +78,11 @@ def _stage_times(x, encode):
     return total, ms
 
 
-def main(argv=None):
-    p = argparse.ArgumentParser()
-    p.add_argument("--out", default=os.path.join(kernels.BUILD_DIR,
-                                                 "trace_encode.json"))
-    args = p.parse_args(argv)
-
-    from atracdenc_tpu_torch import runtime
-    from atracdenc_tpu_torch.models.atrac3.encoder import encode_frames
-
-    dev = runtime.device("cuda")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip().splitlines()[0]
-    x = _corpus(STREAMS, FRAMES, dev)
-
-    def encode(xx):
-        return encode_frames(xx, no_gain_control=False, no_tonal=False)
-
+def _trace(x, encode, stages, items):
+    """Warm-up, synchronised stage times, then one profiled run."""
     encode(x)
     torch.cuda.synchronize()
-    sync_total, stages = _stage_times(x, encode)
-
+    sync_total, stage_ms = _stage_times(x, encode, stages)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -128,27 +101,87 @@ def main(argv=None):
             kern.append((ev.key, dt / 1e3, ev.count))
     kern.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in kern)
-    n_launch = sum(r[2] for r in kern)
-    out = {"card": card, "streams": STREAMS, "frames": FRAMES,
-           "stereo_frames": STREAMS * FRAMES,
-           "encode_wall_ms": wall, "device_busy_ms": busy,
-           "device_idle_share": 1.0 - busy / wall if wall > 0 else None,
-           "kernel_launches": n_launch,
-           "sync_encode_ms": sync_total, "stage_ms": stages,
-           "top_kernels": [{"name": k, "ms": v, "count": c}
-                           for k, v, c in kern[:25]]}
+    return {"items": items, "wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall if wall > 0 else None,
+            "kernel_launches": sum(r[2] for r in kern),
+            "sync_ms": sync_total, "stage_ms": stage_ms,
+            "top_kernels": [{"name": k, "ms": v, "count": c}
+                            for k, v, c in kern[:25]]}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--out", default=os.path.join(kernels.BUILD_DIR,
+                                                 "trace_encode.json"))
+    args = p.parse_args(argv)
+
+    from atracdenc_tpu_torch import runtime
+    from atracdenc_tpu_torch.models.atrac1 import device_pack as pack1
+    from atracdenc_tpu_torch.models.atrac1 import encoder as enc1
+    from atracdenc_tpu_torch.models.atrac1 import filterbank as fb1
+    from atracdenc_tpu_torch.models.atrac3 import device_pack as pack3
+    from atracdenc_tpu_torch.models.atrac3 import encoder, gain, tonal
+    from atracdenc_tpu_torch.ops import psy, scale
+
+    dev = runtime.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+
+    at3_stages = [(encoder, "band_frames", "qmf bands"),
+                  (gain, "gain_control", "gain control"),
+                  (gain, "energy_scale", "gain energy scale"),
+                  (encoder, "mdct_frames", "mdct"),
+                  (psy, "track_loudness_scan", "loudness IIR"),
+                  (tonal, "flatness_per_bfu", "tonal flatness"),
+                  (tonal, "extract", "tonal extract"),
+                  (tonal, "scale_groups", "tonal scale"),
+                  (scale, "scale_blocks", "scale"),
+                  (encoder, "quant_tensors", "quant memo (A, B)"),
+                  (encoder, "allocate", "rate control (C)"),
+                  (encoder, "final_mantissas", "final mantissas (B)"),
+                  (pack3, "channel_fields", "pack fields"),
+                  (pack3, "deposit_fields", "bit deposit")]
+    at1_stages = [(fb1, "analysis", "qmf bands"),
+                  (enc1, "transient_mask", "transient detect"),
+                  (enc1, "mdct_frames", "mdct"),
+                  (psy, "track_loudness_scan", "loudness IIR"),
+                  (enc1, "gather_bfu_blocks", "bfu blocks"),
+                  (scale, "scale_blocks", "scale"),
+                  (enc1, "at1_allocate_block", "rate control (E)"),
+                  (scale, "quant_mantissas", "mantissas"),
+                  (pack1, "pack_device", "device pack")]
+
+    def at1_path(xx):
+        planes = enc1.encode_frames(xx)
+        return pack1.pack_device({k: planes[k].transpose(1, 2).reshape(
+            (-1,) + planes[k].shape[3:]) for k in ("short_mask", "bfu_idx",
+                                                   "wordlen", "sfi", "mant")})
+
+    x3 = _corpus(STREAMS, FRAMES, dev)
+    out = {"card": card, "atrac3": _trace(
+        x3, lambda xx: encoder.encode_frames_bytes(
+            xx, no_gain_control=False, no_tonal=False),
+        at3_stages, {"stereo_frames": STREAMS * FRAMES})}
+    x1 = x3[:AT1_STREAMS].contiguous()     # 256 x 1024 = 512 x 512 samples
+    del x3
+    out["atrac1"] = _trace(x1, at1_path, at1_stages,
+                           {"sound_units": AT1_STREAMS * 2 * AT1_FRAMES})
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as fp:
         json.dump(out, fp, indent=1)
-    print(f"{card} | {out['stereo_frames']} stereo frames: wall {wall:.1f} ms,"
-          f" device busy {busy:.1f} ms, idle share "
-          f"{out['device_idle_share']:.3f}, {n_launch} kernel launches")
-    print(f"synchronised stage times (total {sync_total:.1f} ms):")
-    for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
-        print(f"  {k:24s} {v:9.2f} ms")
-    print("top kernels by device time:")
-    for k, v, c in kern[:15]:
-        print(f"  {v:9.3f} ms  x{c:<5d} {k[:90]}")
+    for path in ("atrac3", "atrac1"):
+        r = out[path]
+        print(f"{card} | {path} {r['items']}: wall {r['wall_ms']:.1f} ms, "
+              f"device busy {r['device_busy_ms']:.1f} ms, idle share "
+              f"{r['device_idle_share']:.3f}, {r['kernel_launches']} kernel "
+              f"launches")
+        print(f"synchronised stage times (total {r['sync_ms']:.1f} ms):")
+        for k, v in sorted(r["stage_ms"].items(), key=lambda kv: -kv[1]):
+            print(f"  {k:24s} {v:9.2f} ms")
+        print("top kernels by device time:")
+        for k in r["top_kernels"][:15]:
+            print(f"  {k['ms']:9.3f} ms  x{k['count']:<5d} {k['name'][:90]}")
 
 
 if __name__ == "__main__":

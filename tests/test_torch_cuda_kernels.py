@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card, at
 shapes and values the main path rarely gives them: ragged row and frame
 counts, one-candidate and full-length scans, silent and tiny blocks,
-rounding ties, dense tonal planes, and both rate-control modes.
+rounding ties, dense tonal planes, both rate-control modes, and for the
+ATRAC1 rate control every BFU gated, every band short and every
+--bfuidxconst value.
 
 Needs a GPU and nvcc, so every test is marked ``cuda`` and skips elsewhere.
 The machine with the card has no JAX, and tests/conftest.py imports it, so
@@ -9,14 +11,14 @@ run this file there without the conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances are chip_smoke.py's: B and C bit-equal; A's vlc equal and its
-err within 4 ulp (e1 is an f32 sum taken in another order).
+Tolerances are chip_smoke.py's: B, C and E bit-equal; A's vlc equal and
+its err within 4 ulp (e1 is an f32 sum taken in another order).
 """
 import numpy as np
 import pytest
 import torch
 
-from atracdenc_tpu_torch.ops import greedy, quant_cost, rate_control
+from atracdenc_tpu_torch.ops import at1_alloc, greedy, quant_cost, rate_control
 from atracdenc_tpu_torch.shared import tables as T
 
 pytestmark = pytest.mark.cuda
@@ -114,6 +116,33 @@ def test_rate_control_kernel(dev, n, dense_tonal, auto):
         assert torch.equal(k.to(p.dtype), p), name
 
 
+def _at1_inputs(n, case):
+    rng = np.random.default_rng(n)
+    sfi = rng.integers(0, 64, (n, 52)).astype(np.int32)
+    energy = (10.0 ** rng.uniform(-9, 2, (n, 52))).astype(np.float32)
+    short = rng.integers(0, 2, (n, 3)) > 0
+    loud = (10.0 ** rng.uniform(-4, 0, n)).astype(np.float32)
+    if case == "silence":                 # every long-window BFU gated
+        sfi[:] = 0
+        energy[:] = 0.0
+        short[:] = False
+    elif case == "short":                 # all bands short: no gate
+        short[:] = True
+    return [torch.from_numpy(a) for a in (sfi, energy, short, loud)]
+
+
+@pytest.mark.parametrize("n,case", [(1, "random"), (257, "random"),
+                                    (257, "silence"), (257, "short"),
+                                    (8192, "random")])
+@pytest.mark.parametrize("const", range(9))
+def test_at1_allocate_kernel(dev, n, case, const):
+    ins = [x.to(dev) for x in _at1_inputs(n, case)]
+    idx_k, wl_k = at1_alloc.at1_allocate_block(*ins, bfu_idx_const=const)
+    idx_p, wl_p = at1_alloc.at1_allocate_torch(*ins, bfu_idx_const=const)
+    torch.cuda.synchronize()
+    assert torch.equal(idx_k, idx_p) and torch.equal(wl_k, wl_p)
+
+
 def test_wrappers_refuse_bad_shapes(dev):
     with pytest.raises(ValueError):
         quant_cost.quant_cost_plain(torch.zeros((2, 32, 64), device=dev),
@@ -126,3 +155,8 @@ def test_wrappers_refuse_bad_shapes(dev):
     ins["t_vlc"] = ins["t_vlc"][..., :7]
     with pytest.raises(ValueError):
         rate_control.rate_control_block(**ins)
+    sfi, energy, short, loud = [x.to(dev) for x in _at1_inputs(3, "random")]
+    with pytest.raises(ValueError):
+        at1_alloc.at1_allocate_block(sfi, energy, short[:, :2], loud)
+    with pytest.raises(ValueError):
+        at1_alloc.at1_allocate_block(sfi, energy, short, loud, bfu_idx_const=9)

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from atracdenc_tpu_torch import kernels, runtime
-from atracdenc_tpu_torch.ops import greedy, quant_cost, rate_control
+from atracdenc_tpu_torch.ops import at1_alloc, greedy, quant_cost, rate_control
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -39,6 +39,16 @@ pcm = torch.from_numpy((0.1 * rng.standard_normal((2, 2048))).astype(np.float32)
 planes = encode_frames(pcm, no_gain_control=False, no_tonal=False)
 out = frame.pack({k: to_numpy(v) for k, v in planes.items()}, 384)
 assert out.shape == (2, 384)
+from atracdenc_tpu_torch.models.atrac1 import decoder, device_pack, encoder as at1
+from atracdenc_tpu_torch.shared import at1_frame
+pcm1 = (0.1 * rng.standard_normal((2, 512 * 4))).astype(np.float32)
+planes1 = at1.encode_track(pcm1, device="cpu")
+merged = {k: np.swapaxes(planes1[k], 0, 1).reshape((-1,) + planes1[k].shape[2:])
+          for k in ("short_mask", "bfu_idx", "wordlen", "sfi", "mant")}
+units = at1_frame.pack(merged)
+assert units.shape == (8, 212)
+assert (device_pack.pack_device({k: torch.from_numpy(v) for k, v in merged.items()}).numpy() == units).all()
+assert decoder.decode_track(planes1, exact=False, device="cpu").shape == (2, 512 * 4)
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
 print("ok")
 """
@@ -105,7 +115,8 @@ def _missing_library():
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-@pytest.mark.parametrize("name", ["quant_cost", "greedy", "rate_control"])
+@pytest.mark.parametrize("name", ["quant_cost", "greedy", "rate_control",
+                                  "at1_alloc"])
 def test_non_cpu_tensor_without_library_raises(monkeypatch, name):
     """A tensor that is not on the CPU goes to the kernel, never to the
     plain version: with the library missing the wrapper raises (meta
@@ -120,15 +131,18 @@ def test_non_cpu_tensor_without_library_raises(monkeypatch, name):
         elif name == "greedy":
             z = torch.zeros((4, 32), device=meta)
             greedy.greedy_scan(z, z, z.bool(), z[:, 0], z[:, 0])
-        else:
+        elif name == "rate_control":
             f = torch.zeros((3, 32), device=meta)
             i = f.int()
             m = torch.zeros((3, 32, 8), device=meta)
             rate_control.rate_control_block(
                 f, f.bool(), i, f[:, 0], i[:, 0], i[:, 0], m, m.int(), m.int(),
                 i, i, i, i, m.int())
+        else:
+            e = torch.zeros((3, 52), device=meta)
+            at1_alloc.at1_allocate_block(e.int(), e, e[:, :3].bool(), e[:, 0])
     assert quant_cost.launches == 0 and greedy.launches == 0 \
-        and rate_control.launches == 0
+        and rate_control.launches == 0 and at1_alloc.launches == 0
 
 
 def test_cpu_route_takes_the_plain_version():
@@ -139,3 +153,9 @@ def test_cpu_route_takes_the_plain_version():
     err, vlc = quant_cost.quant_cost_plain(x, torch.ones((32, 128), dtype=torch.bool))
     assert err.shape == (1, 32, 8) and vlc.dtype == torch.int32
     assert quant_cost.launches == 0
+    e = torch.full((2, 52), 1e-3)
+    idx, wl = at1_alloc.at1_allocate_block(
+        torch.full((2, 52), 40, dtype=torch.int32), e,
+        torch.zeros((2, 3), dtype=torch.bool), torch.ones(2))
+    assert idx.shape == (2,) and wl.shape == (2, 52) and wl.dtype == torch.int32
+    assert at1_alloc.launches == 0
