@@ -3,20 +3,25 @@
 Hopper (sm_90a).
 
 The JAX package ``atracdenc_tpu`` is the reference; every stage here is
-held against it on the same inputs (tests/test_torch_*.py).  Host-only
-modules that import no JAX (tables, the frame packers, containers, audio
-I/O, the ATRAC1 exact-semantics paths) are imported from ``atracdenc_tpu``
-as they are, through ``shared.py``.
+held against it on the same inputs (tests/test_torch_*.py).  The port
+imports nothing of it: the numpy-only host modules (tables, the frame
+packers, containers, audio I/O, the ATRAC1 exact-semantics paths, the
+native bit packer) are copies kept at the same paths, so each has its
+counterpart there.
 
 Layout mirrors ``atracdenc_tpu``:
   runtime.py   device selection, f32 policy, numpy <-> torch
-  shared.py    the numpy-only modules taken from ``atracdenc_tpu``
   kernels.py   builds csrc/*.cu with nvcc and loads them with ctypes
   ops/         DSP stages, the bit deposit and the kernel wrappers
                (quant_cost, greedy, rate_control, at1_alloc), each beside
                its plain PyTorch version
-  models/atrac3/  the ATRAC3 encoder, its device packer and CLI glue
-  models/atrac1/  the ATRAC1 encoder, decoder and device packer
+  models/atrac3/  the ATRAC3 encoder, its device packer and CLI glue, the
+               tables and the host frame packer
+  models/atrac1/  the ATRAC1 encoder, decoder and device packer, the
+               tables, the host frame packer and the exact-semantics paths
+  containers/, io/  AEA / OMA / AT3 / RM / RAW files, WAV and audio I/O
+  utils/       host bit packing (native/bitpack.cpp when a compiler is
+               present, else numpy), operator messages, progress
   cli.py       the command-line entry point (ATRAC1 encode / decode, ATRAC3
                encode)
 """

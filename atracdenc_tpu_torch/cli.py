@@ -11,7 +11,7 @@ encode).
 Takes the options of ``atracdenc_tpu/cli.py`` for these codecs.  ATRAC3+,
 decoding anything but AEA, ``--exact`` for ATRAC3 and ``--yaml-log`` are
 not ported yet and exit 1.  ``--device cpu`` runs the kernels' plain
-versions (for tests); the default is CUDA.  Decoding runs the shared
+versions (for tests); the default is CUDA.  Decoding runs the
 exact-semantics decoder on the host, as the JAX CLI does.
 """
 import argparse
@@ -69,8 +69,11 @@ def _split_channel_planes(planes, channels):
 
 
 def encode_atrac1(args):
-    from atracdenc_tpu_torch.shared import (aea, at1_exact_enc, at1_frame,
-                                            audio, operator_log, progress, raw)
+    from atracdenc_tpu_torch.containers import aea, raw
+    from atracdenc_tpu_torch.io import audio
+    from atracdenc_tpu_torch.models.atrac1 import exact_enc as at1_exact_enc
+    from atracdenc_tpu_torch.models.atrac1 import frame as at1_frame
+    from atracdenc_tpu_torch.utils import operator_log, progress
 
     pcm, rate = audio.read(args.infile)
     if rate != 44100:
@@ -105,7 +108,9 @@ def encode_atrac1(args):
 
 
 def decode_atrac1(args):
-    from atracdenc_tpu_torch.shared import aea, at1_frame, audio
+    from atracdenc_tpu_torch.containers import aea
+    from atracdenc_tpu_torch.io import audio
+    from atracdenc_tpu_torch.models.atrac1 import frame as at1_frame
     from atracdenc_tpu_torch.models.atrac1.decoder import decode_track
 
     try:

@@ -31,12 +31,16 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # (x, mask, err, vlc, n_blocks, stream)
     "atrac3_quant_cost_plain": [_P, _P, _P, _P, _L, _P],
+    # (x, mask, err, vlc, n_frames, stream)
+    "atrac3_quant_cost_full": [_P, _P, _P, _P, _L, _P],
     # (a, b, elig, e1, e2, e2_out, accept, rows, L, stream)
     "atrac3_greedy_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # (csfi, gated, tcounts, spread, target, num_bfu, err, clc, vlc,
     #  t_active, t_pos, t_len, t_bfu, t_vlc, fix, xdiv,
     #  wl_out, num_bfu_out, mode_out, n, auto, stream)
     "atrac3_rate_control": [_P] * 19 + [_I, _I, _P],
+    # (the 16 inputs of atrac3_rate_control, wl_out, n, stream)
+    "atrac3_bisect": [_P] * 17 + [_I, _P],
     # (sfi, energy, short_flags, loud, ath, fix_long, fix_short, band, specs,
     #  amount, boost_bits, boost_pos, n_boost, wl_out, idx_out, n,
     #  bfu_idx_const, stream)

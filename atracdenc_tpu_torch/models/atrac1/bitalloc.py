@@ -20,7 +20,7 @@ import functools
 import numpy as np
 import torch
 
-from atracdenc_tpu_torch.shared import at1_tables as T
+from atracdenc_tpu_torch.models.atrac1 import tables as T
 from atracdenc_tpu_torch.ops import psy
 
 BISECT_STEPS = 11     # w_k = 18.02 / 2^k - 0.02 <= 0 at k = 10

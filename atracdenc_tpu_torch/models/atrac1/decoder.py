@@ -11,8 +11,8 @@ import functools
 import numpy as np
 import torch
 
-from atracdenc_tpu_torch.shared import at1_exact_synth
-from atracdenc_tpu_torch.shared import at1_tables as T
+from atracdenc_tpu_torch.models.atrac1 import exact_synth as at1_exact_synth
+from atracdenc_tpu_torch.models.atrac1 import tables as T
 from atracdenc_tpu_torch import runtime
 from . import filterbank
 from .mdct import imdct_frames
@@ -60,7 +60,7 @@ def decode_frames(short_mask, wordlen, sfi, mant):
 def decode_track(planes, exact=True, device=None):
     """Planes [C, F, ...] (numpy) -> PCM [C, F*512] float32 numpy.
 
-    exact=True (the default, and what the CLI uses) runs the shared float32
+    exact=True (the default, and what the CLI uses) runs the float32
     reference-semantics path ``exact_synth.decode_track_exact``, equal to
     the reference decoder sample for sample.  exact=False runs
     ``decode_frames`` on ``device`` ("cuda" by default, or "cpu")."""

@@ -9,7 +9,7 @@ units by ``ops/bitdeposit.deposit_fields``.  Layout per the reference writer
 """
 import torch
 
-from atracdenc_tpu_torch.shared import at1_tables as T
+from atracdenc_tpu_torch.models.atrac1 import tables as T
 from atracdenc_tpu_torch.ops.bitdeposit import deposit_fields
 
 __all__ = ["pack_device"]

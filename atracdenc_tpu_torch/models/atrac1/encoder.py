@@ -4,7 +4,7 @@ Port of ``atracdenc_tpu/models/atrac1/encoder.py`` (reference call stack
 src/atrac1denc.cpp:180-255): QMF analysis -> per-band transient detection
 -> windowed MDCT -> loudness IIR -> block-floating scale -> bit allocation
 (kernel E) -> mantissas.  The output is a dict of fixed-shape integer
-planes; ``shared.at1_frame.pack`` on the host or ``device_pack.pack_device``
+planes; ``frame.pack`` on the host or ``device_pack.pack_device``
 on the device serialises them into 212-byte sound units.
 
 Where JAX vmaps over streams, the port takes an optional leading stream
@@ -15,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from atracdenc_tpu_torch.shared import at1_tables as T
+from atracdenc_tpu_torch.models.atrac1 import tables as T
 from atracdenc_tpu_torch import runtime
 from atracdenc_tpu_torch.ops import psy, scale as scale_ops
 from atracdenc_tpu_torch.ops.at1_alloc import at1_allocate_block

@@ -4,7 +4,8 @@ Port of ``atracdenc_tpu/models/atrac3/bitalloc.py`` (reference
 src/atrac/at3/atrac3_bitstream.cpp:261-760 and the bs_encode lambda
 bisection).  The per-(BFU, wordlen) costs are computed once
 (``quant_tensors``: plain lanes by kernel A, the energy-adjusted lanes by
-``quant_blocks`` / kernel B, the wl==1 pair codebook), then every
+``quant_blocks`` / kernel B, the wl==1 pair codebook; or all of it in
+kernel D with ``fused_memo=True``), then every
 bisection step is a gather + sum over all channel-frames.  ``allocate``
 runs the whole loop through kernel C (``ops/rate_control.py``) or, with
 ``use_rate_kernel=False``, through the tensor-op form below (the JAX
@@ -15,29 +16,16 @@ import functools
 import numpy as np
 import torch
 
-from atracdenc_tpu_torch.shared import tables as T
+from atracdenc_tpu_torch.models.atrac3 import tables as T
 from atracdenc_tpu_torch.ops import psy
+from atracdenc_tpu_torch.ops.greedy import greedy_scan
 from atracdenc_tpu_torch.ops.quant import quant_blocks, _round_energy
 from atracdenc_tpu_torch.ops.quant_cost import (
-    quant_cost_plain, sanitize, vlc_bits, vlc_index)
+    ea_groups, memo, quant_cost_full, quant_cost_plain)
 from atracdenc_tpu_torch.ops.rate_control import rate_control_block
 
 _BISECT_STEPS = 11  # (28 / 2^k - 0.02) <= 0 at k = 11
 _MAX_WL = 8
-
-
-def _ea_groups():
-    """EA-region BFU runs grouped by block length: [(b, e, len), ...]."""
-    groups = []
-    b = T.LOSY_NAQ_START + 1
-    while b < T.MAX_BFUS:
-        ln = int(T.SPECS_PER_BLOCK[b])
-        e = b
-        while e < T.MAX_BFUS and int(T.SPECS_PER_BLOCK[e]) == ln:
-            e += 1
-        groups.append((b, e, ln))
-        b = e
-    return groups
 
 
 def _clc_table() -> np.ndarray:
@@ -54,81 +42,31 @@ def _clc_table() -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _consts(dev):
     ath = psy.ath_per_bfu(T.SPECS_START, T.SPECS_PER_BLOCK)
-    pair_bits = np.array([T.VLC_BITS[0, T.VLC_PAIR_RTAB[k]] for k in range(9)],
-                         np.int32)
     return {"ath": torch.as_tensor(ath.astype(np.float32), device=dev),
             "fix": torch.as_tensor(T.FIXED_BIT_ALLOC.astype(np.float32),
                                    device=dev),
             "xdiv": torch.as_tensor(T.SFI_DIVISOR, device=dev),
             "maxq": torch.as_tensor(T.MAX_QUANT, device=dev),
             "clc": torch.as_tensor(_clc_table(), device=dev),
-            "pair_bits": torch.as_tensor(pair_bits, device=dev),
             "band": torch.as_tensor(T.BFU_TO_BAND.astype(np.int64), device=dev),
             "iota32": torch.arange(32, device=dev, dtype=torch.int32)}
 
 
-def quant_tensors(scaled, valid_mask):
+def quant_tensors(scaled, valid_mask, fused_memo=False):
     """Per-(BFU, wordlen) quantisation costs (the reference TEncCache).
 
     scaled [..., 32, 128], valid_mask [32, 128] bool.  Returns
     {"err": [..., 32, 8] f32 (e1/e2, sanitised), "clc": [..., 32, 8] i32,
-    "vlc": [..., 32, 8] i32}.  EA lanes add their VLC cost as per-flip
-    deltas inside the greedy pass; the wl==1 pair codebook needs actual
-    mantissas, so that lane runs in mantissa mode."""
-    c = _consts(scaled.device)
-    err, vlc_single = quant_cost_plain(scaled, valid_mask)
-    err = err.clone()
-    vlc_single = vlc_single.clone()
-    pair1 = torch.where(valid_mask, torch.round(scaled * c["maxq"][1]), 0.0
-                        ).to(torch.int32)
-
-    for b, e, ln in _ea_groups():
-        sub = scaled[..., b:e, None, :ln].expand(
-            scaled.shape[:-2] + (e - b, _MAX_WL - 1, ln))   # wl 1..7
-        subv = valid_mask[b:e, None, :ln]
-        subm = c["maxq"][1:].expand(sub.shape[:-1])
-        ones = torch.ones(subm.shape, dtype=torch.bool, device=scaled.device)
-        # wl==1 lane in mantissa mode (pair codes need the values)
-        ea_m1, ea_e1 = quant_blocks(sub[..., 0, :], subv[:, 0],
-                                    subm[..., 0], ones[..., 0])
-        pair1[..., b:e, :ln] = ea_m1
-        err[..., b:e, 1] = ea_e1
-        # wl 2..7 in cost mode, with per-candidate VLC bit deltas of the
-        # flip quant_blocks would make
-        sub2 = sub[..., 1:, :]
-        m2 = subm[..., 1:]
-        t = sub2 * m2[..., None]
-        m_old = torch.where(subv, torch.round(t).to(torch.int32), 0)
-        m_up = torch.where(m_old > 0, m_old + 1, torch.where(
-            m_old < 0, m_old - 1, torch.where(t > 0, 1, -1).to(torch.int32)))
-        m_dn = torch.where(m_old > 0, m_old - 1,
-                           torch.where(m_old < 0, m_old + 1, m_old))
-        # e1/e2 exactly as _round_energy computes them, so the branch is
-        # the one quant_blocks picks internally
-        e2g = torch.sum(torch.where(subv, (m_old * m_old).to(sub.dtype), 0.0),
-                        dim=-1) * (1.0 / (m2 * m2))
-        e1g = torch.sum(torch.where(subv, sub2 * sub2, 0.0), dim=-1)
-        m_new = torch.where((e2g < e1g)[..., None], m_up, m_dn)
-        dbits = torch.stack(
-            [vlc_bits(vlc_index(m_new[..., w - 2, :]), min(w - 1, 6))
-             - vlc_bits(vlc_index(m_old[..., w - 2, :]), min(w - 1, 6))
-             for w in range(2, _MAX_WL)], dim=-2).to(torch.int32)
-        ea_err, ea_db = quant_blocks(sub2, subv, m2, ones[..., 1:], aux=dbits)
-        err[..., b:e, 2:] = ea_err
-        vlc_single[..., b:e, 2:] += ea_db
-
-    # wl==1 pairs: (a+1)*3 + (b+1) -> table-1 index
-    pairs = pair1.reshape(pair1.shape[:-1] + (64, 2))
-    key = 3 * (pairs[..., 0] + 1) + (pairs[..., 1] + 1)
-    bits_pair = c["pair_bits"][key.clamp(0, 8).long()]
-    pair_valid = valid_mask.reshape(32, 64, 2)[..., 0]
-    vlc_single[..., 1] = torch.sum(torch.where(pair_valid, bits_pair, 0),
-                                   dim=-1, dtype=torch.int32)
-    # non-finite err lanes -> select-safe values with the same boost
-    # decisions (NaN -> 0, +inf -> FLT_MAX)
-    err = sanitize(err)
-    clc = c["clc"].expand(err.shape)
-    return {"err": err, "clc": clc, "vlc": vlc_single}
+    "vlc": [..., 32, 8] i32}.  fused_memo=False computes the memo from
+    kernels A and B (``quant_cost.memo``); True runs it whole in kernel D
+    (``quant_cost_full``), the JAX package's ``use_pallas=True``.  On a CPU
+    tensor both take the kernels' plain versions."""
+    if fused_memo:
+        err, vlc = quant_cost_full(scaled, valid_mask)
+    else:
+        err, vlc = memo(scaled, valid_mask, quant_cost_plain, greedy_scan)
+    return {"err": err, "clc": _consts(scaled.device)["clc"].expand(err.shape),
+            "vlc": vlc}
 
 
 def final_mantissas(scaled, valid_mask, wl):
@@ -136,11 +74,12 @@ def final_mantissas(scaled, valid_mask, wl):
     mul = _consts(scaled.device)["maxq"][wl.long()]
     mant, _, _ = _round_energy(scaled, valid_mask, mul)
     mant = mant.clone()
-    for b, e, ln in _ea_groups():
+    for b, e, ln in ea_groups():
         ea_m, _ = quant_blocks(scaled[..., b:e, :ln], valid_mask[b:e, :ln],
                                mul[..., b:e],
                                torch.ones(mul[..., b:e].shape, dtype=torch.bool,
-                                          device=scaled.device))
+                                          device=scaled.device),
+                               scan=greedy_scan)
         mant[..., b:e, :ln] = ea_m
     return mant.to(torch.int8)
 

@@ -7,9 +7,11 @@ the OMA / RIFF / RM / RAW writers are the JAX package's numpy modules.
 """
 import sys
 
-from atracdenc_tpu_torch.shared import (at3, audio, frame, oma, operator_log,
-                                        progress, raw, rm)
-from atracdenc_tpu_torch.shared import tables as T
+from atracdenc_tpu_torch.containers import at3, oma, raw, rm
+from atracdenc_tpu_torch.io import audio
+from atracdenc_tpu_torch.models.atrac3 import frame
+from atracdenc_tpu_torch.models.atrac3 import tables as T
+from atracdenc_tpu_torch.utils import operator_log, progress
 
 
 def encode_file(args, lp4=False):

@@ -19,7 +19,7 @@ import functools
 import numpy as np
 import torch
 
-from atracdenc_tpu_torch.shared import tables as T
+from atracdenc_tpu_torch.models.atrac3 import tables as T
 from atracdenc_tpu_torch.ops.bitdeposit import deposit_fields
 
 __all__ = ["channel_fields", "pack_device", "pack_device_batch"]

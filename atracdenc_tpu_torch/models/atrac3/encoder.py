@@ -18,7 +18,7 @@ import functools
 import numpy as np
 import torch
 
-from atracdenc_tpu_torch.shared import tables as T
+from atracdenc_tpu_torch.models.atrac3 import tables as T
 from atracdenc_tpu_torch import runtime
 from atracdenc_tpu_torch.ops import psy, scale as scale_ops
 from . import device_pack, filterbank, gain, specblocks, tonal
@@ -71,21 +71,23 @@ def init_state(c, dev, lead=()):
 
 
 def encode_frames(pcm, frame_bytes=384, js=False, no_gain_control=True,
-                  no_tonal=True, bfu_idx_const=0, use_rate_kernel=True):
+                  no_tonal=True, bfu_idx_const=0, use_rate_kernel=True,
+                  fused_memo=False):
     """[C, T] or [S, C, T] PCM (T a multiple of 1024) -> frame planes."""
     planes, _ = encode_frames_chunk(pcm, None, None, frame_bytes, js,
                                     no_gain_control, no_tonal, bfu_idx_const,
-                                    use_rate_kernel)
+                                    use_rate_kernel, fused_memo)
     return planes
 
 
 def encode_frames_bytes(pcm, frame_bytes=384, js=False, no_gain_control=True,
-                        no_tonal=True, bfu_idx_const=0, use_rate_kernel=True):
+                        no_tonal=True, bfu_idx_const=0, use_rate_kernel=True,
+                        fused_memo=False):
     """[C, T] PCM -> [F, frame_bytes] uint8 frames, or [S, C, T] -> [S, F,
     frame_bytes], packed on the device: byte-identical to ``frame.pack`` of
     ``encode_frames``, and only the frame bytes leave the device."""
     planes = encode_frames(pcm, frame_bytes, js, no_gain_control, no_tonal,
-                           bfu_idx_const, use_rate_kernel)
+                           bfu_idx_const, use_rate_kernel, fused_memo)
     if pcm.dim() == 3:
         return device_pack.pack_device_batch(planes, frame_bytes, js)
     return device_pack.pack_device(planes, frame_bytes, js)
@@ -93,13 +95,16 @@ def encode_frames_bytes(pcm, frame_bytes=384, js=False, no_gain_control=True,
 
 def encode_frames_chunk(pcm, state=None, next_pcm=None, frame_bytes=384,
                         js=False, no_gain_control=True, no_tonal=True,
-                        bfu_idx_const=0, use_rate_kernel=True):
+                        bfu_idx_const=0, use_rate_kernel=True,
+                        fused_memo=False):
     """Encode [..., C, T] PCM into ATRAC3 frame planes.
 
     ``state`` carries the exact cross-chunk recurrences (``init_state``);
     ``next_pcm`` [..., C, 1024] is the lookahead after this chunk (None at
     track end).  ``use_rate_kernel=False`` runs the tensor-op rate control
-    instead of kernel C (same bytes).  Returns (planes, new_state); planes
+    instead of kernel C (same bytes); ``fused_memo=True`` computes the
+    quantisation-cost memo in kernel D instead of kernels A and B (the JAX
+    package's ``ATRACDENC_TPU_PALLAS_QUANT=1``).  Returns (planes, new_state); planes
     (per [..., C, F]): num_bfu, coding_mode (1 = CLC), wordlen [32], sfi
     [32], mant [32, 128], gain_npoints [4], gain_levels / gain_locs [4, 8],
     loudness [..., F], ms_shift [..., F], clip_count, clip_max, and with
@@ -219,7 +224,7 @@ def encode_frames_chunk(pcm, state=None, next_pcm=None, frame_bytes=384,
     target = torch.clamp(8 * (half + shift_per_ch) - 6 - header_bits,
                          min=1).to(torch.int32).reshape(s * c, f)
 
-    qt = quant_tensors(scaled, k["mask"])
+    qt = quant_tensors(scaled, k["mask"], fused_memo)
     loud_cf = loudness[:, None, :].expand(s, c, f).reshape(s * c, f)
     num_bfu, mode, wl = allocate(
         qt, sfi, gain_scale_frame, energy, spread, loud_cf, target,
@@ -269,7 +274,8 @@ def encode_frames_chunk(pcm, state=None, next_pcm=None, frame_bytes=384,
 
 def encode_track(pcm, frame_bytes=384, js=False, no_gain_control=True,
                  no_tonal=True, bfu_idx_const=0, chunk_frames=1024,
-                 progress=None, device=None, use_rate_kernel=True):
+                 progress=None, device=None, use_rate_kernel=True,
+                 fused_memo=False):
     """NumPy wrapper: [C, T] PCM -> numpy planes.  Pads to whole frames and
     encodes tracks longer than ``chunk_frames`` in exact chunks (the carry
     state makes chunked output identical to whole-track output).
@@ -285,7 +291,8 @@ def encode_track(pcm, frame_bytes=384, js=False, no_gain_control=True,
     f_total = pcm.shape[1] // T.NUM_SAMPLES
     opts = dict(frame_bytes=frame_bytes, js=js,
                 no_gain_control=no_gain_control, no_tonal=no_tonal,
-                bfu_idx_const=bfu_idx_const, use_rate_kernel=use_rate_kernel)
+                bfu_idx_const=bfu_idx_const, use_rate_kernel=use_rate_kernel,
+                fused_memo=fused_memo)
 
     if f_total <= chunk_frames:
         planes = encode_frames(runtime.to_torch(pcm, dev), **opts)

@@ -14,7 +14,7 @@ import functools
 import numpy as np
 import torch
 
-from atracdenc_tpu_torch.shared import tables as T
+from atracdenc_tpu_torch.models.atrac3 import tables as T
 from .mdct import gain_divisors
 
 # upsampler (transient_spectral_upsampler.h:66-96)

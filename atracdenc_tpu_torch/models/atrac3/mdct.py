@@ -13,7 +13,7 @@ import functools
 import numpy as np
 import torch
 
-from atracdenc_tpu_torch.shared import tables as T
+from atracdenc_tpu_torch.models.atrac3 import tables as T
 from atracdenc_tpu_torch.ops.mdct import mdct_matrix
 
 

@@ -6,7 +6,7 @@ import functools
 import numpy as np
 import torch
 
-from atracdenc_tpu_torch.shared import tables as T
+from atracdenc_tpu_torch.models.atrac3 import tables as T
 
 _FLAT_IDX = np.concatenate([b * 128 + np.arange(int(T.SPECS_PER_BLOCK[b]))
                             for b in range(32)])

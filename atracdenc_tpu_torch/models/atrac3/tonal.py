@@ -12,7 +12,7 @@ import functools
 
 import torch
 
-from atracdenc_tpu_torch.shared import tables as T
+from atracdenc_tpu_torch.models.atrac3 import tables as T
 from atracdenc_tpu_torch.ops import scale as scale_ops
 from atracdenc_tpu_torch.ops.quant_cost import vlc_bits, vlc_index
 from . import specblocks

@@ -7,24 +7,45 @@ moves the quantised block energy toward the original energy (reference
 QuantMantisas, src/atrac/atrac_scale.cpp:40-130).
 
 The candidate order is a stable sort by |delta| (ties by element index);
-the sequential accept recurrence is kernel B (``ops/greedy.py``).
+the sequential accept recurrence is kernel B (``ops/greedy.py``) by
+default, or any function with its signature.
+
+The original energy e1 is summed in one fixed order (``lane_sum``): the
+accept decisions compare against it, so the fused memo kernel
+(``csrc/quant_full.cu``) has to see the same bits as this module.
 """
 import torch
 
 from atracdenc_tpu_torch.ops.greedy import greedy_scan
 
-__all__ = ["quant_blocks"]
+__all__ = ["lane_sum", "quant_blocks"]
+
+
+def lane_sum(v):
+    """Sum over the last axis (a multiple of 32 long) in the order a CUDA
+    warp sums it: lane i adds elements i, i+32, i+64, ... in turn, then the
+    32 partial sums fold in halves (16, 8, 4, 2, 1).  Only elementwise adds,
+    so the result is the same on every backend."""
+    L = v.shape[-1]
+    parts = v.reshape(v.shape[:-1] + (L // 32, 32))
+    s = parts[..., 0, :]
+    for j in range(1, L // 32):
+        s = s + parts[..., j, :]
+    for o in (16, 8, 4, 2, 1):
+        s = s[..., :o] + s[..., o:2 * o]
+    return s[..., 0]
 
 
 def _round_energy(scaled, valid, mul):
     """Plain ToInt quantisation + energies.
 
-    scaled [..., L]; valid [..., L] bool; mul [...] multiplier.
-    Returns (mant int32 [..., L], e1 [...], e2 [...])."""
+    scaled [..., L] (L a multiple of 32); valid [..., L] bool; mul [...]
+    multiplier.  Returns (mant int32 [..., L], e1 [...], e2 [...]); e2 is
+    a sum of integers, exact in any order."""
     t = scaled * mul[..., None]
     mant = torch.where(valid, torch.round(t).to(torch.int32), 0)
     inv2 = 1.0 / (mul * mul)
-    e1 = torch.sum(torch.where(valid, scaled * scaled, 0.0), dim=-1)
+    e1 = lane_sum(torch.where(valid, scaled * scaled, 0.0))
     m2 = (mant * mant).to(scaled.dtype)
     e2 = torch.sum(torch.where(valid, m2, 0.0), dim=-1) * inv2
     return mant, e1, e2
@@ -40,7 +61,7 @@ def _flip_dn(m):
     return torch.where(m > 0, m - 1, torch.where(m < 0, m + 1, m))
 
 
-def quant_blocks(scaled, valid, mul, ea_mask, aux=None):
+def quant_blocks(scaled, valid, mul, ea_mask, aux=None, scan=greedy_scan):
     """Quantise padded blocks at a multiplier, with EA where masked.
 
     scaled [..., L] (padding 0), valid [..., L] bool, mul [...] f32
@@ -48,7 +69,9 @@ def quant_blocks(scaled, valid, mul, ea_mask, aux=None):
     aux: optional [..., L] int32 per-candidate weights; then COST mode:
     returns (err [...], aux summed over accepted flips [...] int32).
     Without aux returns (mant [..., L] int32, err [...]).  err = e1/e2 in
-    f32 (inf / nan propagate like the reference).
+    f32 (inf / nan propagate like the reference).  scan runs the accept
+    recurrence: ``greedy_scan`` (kernel B on a CUDA tensor) or its plain
+    version ``greedy_torch``.
     """
     valid = valid.expand(scaled.shape)
     t = scaled * mul[..., None]
@@ -94,7 +117,7 @@ def quant_blocks(scaled, valid, mul, ea_mask, aux=None):
 
     # e2 update terms in the reference's float order:
     # ex = (e2 - m^2*inv2) + m'^2*inv2 (atrac_scale.cpp:96-98,118-121)
-    e2_fin, accept_s = greedy_scan(a, b, elig_s, e1f, e2f)
+    e2_fin, accept_s = scan(a, b, elig_s, e1f, e2f)
     err = (e1f / e2_fin).reshape(batch_shape)
 
     if aux is not None:

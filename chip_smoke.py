@@ -4,17 +4,22 @@
 
 Phases (each asserts; any failure exits non-zero):
   1. device   — CUDA present; torch / CUDA versions, card name and power limit
-  2. build    — nvcc builds csrc/*.cu (kernels A, B, C, E) from this checkout
+  2. build    — nvcc builds csrc/*.cu (kernels A, B, C, D, E, F) from this
+                checkout, one nvcc per source, all at once
   3. kernels  — each kernel against its plain PyTorch version on the inputs
                 its path gives it: A, B, C at the ATRAC3 main path's 64
                 streams x 2 ch x 256 frames (A vlc equal and err within 4
                 ulp; B e2 / accept bit-equal; C wl / num_bfu / mode equal
-                for auto and --bfuidxconst); E at the ATRAC1 bench leg's
-                8 streams x 2 ch x 512 frames (bfu_idx / wl equal for auto
-                and --bfuidxconst 4)
+                for auto and --bfuidxconst); D at the same corpus encoded
+                with the fused memo (vlc equal, err within 4 ulp; timed
+                beside the A + B memo on the same input); F on C's inputs
+                (wl equal to its plain version and to C with auto=False);
+                E at the ATRAC1 bench leg's 8 streams x 2 ch x 512 frames
+                (bfu_idx / wl equal for auto and --bfuidxconst 4)
   4. golden   — tests/golden encodes on CUDA against the reference frames:
-                ATRAC3 identity floors 0.99, 0.98, 0.85; ATRAC1 0.93 and
-                0.97; the ATRAC1 decoder within 2e-4 of the reference
+                ATRAC3 identity floors 0.99, 0.98, 0.85, with the A + B
+                memo and again with the fused memo (kernel D); ATRAC1 0.93
+                and 0.97; the ATRAC1 decoder within 2e-4 of the reference
                 decoder's PCM
   5. rate     — bytes with kernel C == bytes with the tensor-op rate path
   6. ATRAC3 real size — the bench corpus (seed 42, 997 Hz + noise, 64 x 256
@@ -26,9 +31,26 @@ Phases (each asserts; any failure exits non-zero):
                 counter zeroed just before; bytes equal the host packer's
   8. CLI      — a 30 s stereo WAV through the port's cli.main: ATRAC3 to
                 .oma; ATRAC1 to .aea and -d back to WAV (RMS within 1 dB)
+  9. fused memo real size — phase 6's corpus through ``encode_frames_bytes``
+                with ``fused_memo=True``, every counter zeroed just before:
+                D, B (final mantissas) and C launch, A does not; stereo
+                frames/s, and the bytes' identity with phase 6's (>= 0.999:
+                the plain lanes' e1 is summed in another order, a float
+                knife edge)
 The last two lines of stdout are the card's nvidia-smi name / power limit
 (preceded by the kernels JSON line) and {"ok": true, "device": {...}}.
+
+The kernels line has one row per kernel.  ``launches`` is the count of the
+path that runs it, read just after that path's run: phase 6 for A, B and C,
+phase 7 for E, phase 9 for D.  F has no caller in the encoder (nor in the
+JAX package), so its path is the one call of phase 3 on C's captured
+inputs, counted alone.  ``bound_ms`` is the larger of the bytes the
+function moves (each input read once, each output written once) over 3.35
+TB/s and its operations (estimated per element, see ``OPS``) over 67
+TFLOP/s, the H100 SXM's HBM and non-tensor f32 peaks.  ``library_ms`` is
+null: no single PyTorch call computes any of the six functions.
 """
+import itertools
 import json
 import os
 import subprocess
@@ -38,6 +60,18 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STREAMS, CHANNELS, NFRAMES = 64, 2, 256
 AT1_STREAMS, AT1_FRAMES = 8, 512          # bench.py:220, pcm[:8, :, :512 * 512]
+HBM_BPS, F32_OPS = 3.35e12, 67e12         # H100 SXM: HBM bytes/s, f32 ops/s
+# Operations each function needs, estimated per unit of its work:
+#   A  per value: 8 wordlens x (multiply, round, square, add, VLC index,
+#      lookup, add, mask) + the e1 square and add
+#   D  A's, plus per EA element and wordlen (13 BFUs x 7): quantise, delta,
+#      key, eligibility, rank (log2 L compares) and the 7-op recurrence step
+#   B  per candidate step: subtract, add, two differences, two abs, compare
+#   C/F per allocation evaluation: 32 BFUs x ~30 (allocation, discount,
+#      boost, cost sums); 12 evaluations per bisection round
+#   E  per evaluation: 52 BFUs x ~10; ~16 evaluations per channel-frame
+OPS = {"A_value": 66, "D_ea_elem": 20 + 7, "B_step": 7, "C_eval": 32 * 30,
+       "E_frame": 52 * 10 * 16}
 
 
 def log(*a):
@@ -69,6 +103,20 @@ def bench_corpus(streams, nframes):
     return np.clip(base[None, None, :] * np.asarray([1.0, 0.8])[None, :, None]
                    + 0.05 * rng.standard_normal((streams, CHANNELS, t)),
                    -1, 1).astype(np.float32)
+
+
+def nbytes(*tensors):
+    """Bytes of the tensors among the arguments (each counted once)."""
+    import torch
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the least time for the bytes at the HBM rate
+    or for the operations at the f32 rate, whichever is longer."""
+    b_ms, o_ms = n_bytes / HBM_BPS * 1e3, n_ops / F32_OPS * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
 def capture(sites, fn):
@@ -108,17 +156,28 @@ def main():
     sys.path.insert(0, ROOT)
     import numpy as np
     from atracdenc_tpu_torch import cli, kernels, runtime
-    from atracdenc_tpu_torch.shared import aea, at1_frame, audio, frame, oma, wav
+    from atracdenc_tpu_torch.containers import aea, oma
+    from atracdenc_tpu_torch.io import audio, wav
+    from atracdenc_tpu_torch.models.atrac1 import frame as at1_frame
+    from atracdenc_tpu_torch.models.atrac3 import frame
     from atracdenc_tpu_torch.models.atrac1 import decoder as at1_decoder
     from atracdenc_tpu_torch.models.atrac1 import device_pack as at1_pack
     from atracdenc_tpu_torch.models.atrac1 import encoder as at1_encoder
     from atracdenc_tpu_torch.models.atrac3 import bitalloc, device_pack, encoder
-    from atracdenc_tpu_torch.ops import (at1_alloc, greedy, quant, quant_cost,
+    from atracdenc_tpu_torch.ops import (at1_alloc, greedy, quant_cost,
                                          rate_control)
-    mods = (quant_cost, greedy, rate_control, at1_alloc)
+    counters = {"A": (quant_cost, "launches"), "B": (greedy, "launches"),
+                "C": (rate_control, "launches"),
+                "D": (quant_cost, "full_launches"),
+                "E": (at1_alloc, "launches"),
+                "F": (rate_control, "bisect_launches")}
 
     def counts():
-        return tuple(m.launches for m in mods)
+        return {k: getattr(m, a) for k, (m, a) in counters.items()}
+
+    def zero_counts():
+        for m, a in counters.values():
+            setattr(m, a, 0)
 
     # --- 1. device
     dev = runtime.device("cuda")
@@ -141,29 +200,71 @@ def main():
     pcm = bench_corpus(STREAMS, NFRAMES)
     x = torch.from_numpy(pcm).to(dev)
     x1 = torch.from_numpy(pcm[:AT1_STREAMS, :, :512 * AT1_FRAMES]).to(dev)
-    calls = capture([(bitalloc, "quant_cost_plain", "A"), (quant, "greedy_scan", "B"),
+    default = dict(no_gain_control=False, no_tonal=False)
+    calls = capture([(bitalloc, "quant_cost_plain", "A"), (bitalloc, "greedy_scan", "B"),
                      (bitalloc, "rate_control_block", "C")],
-                    lambda: encoder.encode_frames(x, no_gain_control=False,
-                                                  no_tonal=False))
+                    lambda: encoder.encode_frames(x, **default))
+    calls.update(capture([(bitalloc, "quant_cost_full", "D")],
+                         lambda: encoder.encode_frames(x, fused_memo=True,
+                                                       **default)))
     calls.update(capture([(at1_encoder, "at1_allocate_block", "E")],
                          lambda: at1_encoder.encode_frames(x1)))
     torch.cuda.synchronize()
 
-    rows = []
+    rows = {}
+
+    def row(name, src, rep, err, ms, pms, n_bytes, n_ops):
+        b_ms, b_by = bound(n_bytes, n_ops)
+        rows[name] = {"name": name, "route": "cuda",
+                      "source": f"atracdenc_tpu_torch/csrc/{src}",
+                      "replaces": f"atracdenc_tpu/ops/{rep}",
+                      "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        return f"bound {b_ms:.4f} ms ({b_by})"
+
+    def ulps(a, b):
+        return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
 
     (a_args, _), = calls["A"]
     err_k, vlc_k = quant_cost.quant_cost_plain(*a_args)
     err_p, vlc_p = quant_cost.quant_cost_torch(*a_args)
     assert torch.equal(vlc_k, vlc_p), "kernel A: vlc differs"
-    ulp = (err_k.view(torch.int32).long() - err_p.view(torch.int32).long()).abs()
+    ulp = ulps(err_k, err_p)
     assert int(ulp.max()) <= 4, f"kernel A: err off by {int(ulp.max())} ulp"
-    a_err = float((err_k - err_p).abs().max())
     a_ms = cuda_ms(lambda: quant_cost.quant_cost_plain(*a_args), 20, 3)
     a_pms = cuda_ms(lambda: quant_cost.quant_cost_torch(*a_args), 5, 1)
+    a_bound = row("quant_cost_plain", "quant_cost.cu", "pallas_quant.py:339",
+                  float((err_k - err_p).abs().max()), a_ms, a_pms,
+                  nbytes(*a_args, err_k, vlc_k), a_args[0].numel() * OPS["A_value"])
     log(f"[3 kernels] A quant_cost_plain {tuple(a_args[0].shape)}: vlc equal, "
-        f"err <= {int(ulp.max())} ulp; kernel {a_ms:.3f} ms, plain {a_pms:.3f} ms")
-    rows.append(("quant_cost_plain", "atracdenc_tpu_torch/csrc/quant_cost.cu",
-                 "atracdenc_tpu/ops/pallas_quant.py:339", a_err, a_ms, a_pms))
+        f"err <= {int(ulp.max())} ulp; kernel {a_ms:.3f} ms, plain {a_pms:.3f} ms, "
+        f"{a_bound}")
+
+    (d_args, _), = calls["D"]
+    err_k, vlc_k = quant_cost.quant_cost_full(*d_args)
+    err_p, vlc_p = quant_cost.quant_cost_full_torch(*d_args)
+    torch.cuda.synchronize()
+    bad = vlc_k != vlc_p
+    ulp = ulps(err_k, err_p)
+    log(f"[3 kernels] D quant_cost_full {tuple(d_args[0].shape)}: "
+        f"{int(bad.sum())} vlc differ ({int(bad[..., 19:, :].sum())} in the EA "
+        f"BFUs 19-31); err <= {int(ulp.max())} ulp (EA lanes "
+        f"{int(ulp[..., 19:, 1:].max())})")
+    assert not bool(bad.any()), "kernel D: vlc differs"
+    assert int(ulp.max()) <= 4, f"kernel D: err off by {int(ulp.max())} ulp"
+    d_ms = cuda_ms(lambda: quant_cost.quant_cost_full(*d_args), 10, 2)
+    d_pms = cuda_ms(lambda: quant_cost.quant_cost_full_torch(*d_args), 2, 1)
+    ab_ms = cuda_ms(lambda: bitalloc.quant_tensors(*d_args, fused_memo=False), 3, 1)
+    n_frames = d_args[0].numel() // 4096
+    d_bound = row("quant_cost_full", "quant_full.cu", "pallas_quant.py:289",
+                  float((err_k - err_p).abs().max()), d_ms, d_pms,
+                  nbytes(*d_args, err_k, vlc_k),
+                  d_args[0].numel() * OPS["A_value"]
+                  + n_frames * 7 * (7 * 32 + 4 * 64 + 2 * 128) * OPS["D_ea_elem"])
+    log(f"[3 kernels] D quant_cost_full: vlc equal; kernel {d_ms:.3f} ms, plain "
+        f"{d_pms:.3f} ms, the A + B memo (quant_tensors(fused_memo=False)) "
+        f"{ab_ms:.3f} ms on the same input; {d_bound}")
+    del err_k, vlc_k, err_p, vlc_p, bad, ulp
 
     b_calls = [a for a, _ in calls["B"]]
     b_err = 0.0
@@ -178,11 +279,12 @@ def main():
         b_err = max(b_err, float(torch.where(both_nan, 0.0, e2k - e2p).abs().max()))
     b_ms = cuda_ms(lambda: [greedy.greedy_scan(*a) for a in b_calls], 10, 2)
     b_pms = cuda_ms(lambda: [greedy.greedy_torch(*a) for a in b_calls], 2, 1)
+    b_bound = row("greedy_scan", "greedy.cu", "pallas_greedy.py:47", b_err, b_ms,
+                  b_pms, sum(nbytes(*a) + nbytes(a[4]) + a[2].numel() for a in b_calls),
+                  sum(a[0].numel() for a in b_calls) * OPS["B_step"])
     log(f"[3 kernels] B greedy_scan {len(b_calls)} calls "
         f"{[tuple(a[0].shape) for a in b_calls]}: bit-equal; all calls "
-        f"kernel {b_ms:.3f} ms, plain {b_pms:.3f} ms")
-    rows.append(("greedy_scan", "atracdenc_tpu_torch/csrc/greedy.cu",
-                 "atracdenc_tpu/ops/pallas_greedy.py:47", b_err, b_ms, b_pms))
+        f"kernel {b_ms:.3f} ms, plain {b_pms:.3f} ms, {b_bound}")
 
     (c_args, c_kw), = calls["C"]
     c_err = 0.0
@@ -196,11 +298,33 @@ def main():
             c_err = max(c_err, float((k_.int() - p_.int()).abs().max()))
     c_ms = cuda_ms(lambda: rate_control.rate_control_block(*c_args, **c_kw), 5, 1)
     c_pms = cuda_ms(lambda: rate_control.rate_control_torch(*c_args, **c_kw), 2, 1)
+    outk = rate_control.rate_control_block(*c_args, **c_kw)
+    rounds = int((c_args[5].long() - outk[0].long() + 1).sum())   # shrinks + 1
+    c_bound = row("rate_control_block", "rate_control.cu", "pallas_rate.py:242",
+                  c_err, c_ms, c_pms, nbytes(*c_args, *outk),
+                  rounds * 12 * OPS["C_eval"])
     log(f"[3 kernels] C rate_control_block {tuple(c_args[0].shape)}: num_bfu/"
         f"mode/wl equal (auto and fixed); kernel {c_ms:.3f} ms, "
-        f"plain {c_pms:.3f} ms")
-    rows.append(("rate_control_block", "atracdenc_tpu_torch/csrc/rate_control.cu",
-                 "atracdenc_tpu/ops/pallas_rate.py:242", c_err, c_ms, c_pms))
+        f"plain {c_pms:.3f} ms, {c_bound} ({rounds} bisection rounds)")
+
+    # F's only path: one call on C's inputs, counted alone
+    zero_counts()
+    wl_f = rate_control.bisect_block(*c_args)
+    torch.cuda.synchronize()
+    f_launches = rate_control.bisect_launches
+    assert f_launches > 0, f_launches
+    wl_fp = rate_control.bisect_torch(*c_args)
+    _, _, wl_c = rate_control.rate_control_block(*c_args, auto=False)
+    assert torch.equal(wl_f, wl_fp), "kernel F differs from its plain version"
+    assert torch.equal(wl_f, wl_c), "kernel F differs from C with auto=False"
+    f_ms = cuda_ms(lambda: rate_control.bisect_block(*c_args), 5, 1)
+    f_pms = cuda_ms(lambda: rate_control.bisect_torch(*c_args), 2, 1)
+    f_bound = row("bisect_block", "bisect.cu", "pallas_alloc.py:433",
+                  float((wl_f - wl_fp).abs().max()), f_ms, f_pms,
+                  nbytes(*c_args, wl_f), c_args[3].numel() * 12 * OPS["C_eval"])
+    log(f"[3 kernels] F bisect_block {tuple(c_args[0].shape)}: wl equal to its "
+        f"plain version and to C with auto=False; kernel {f_ms:.3f} ms, plain "
+        f"{f_pms:.3f} ms, {f_bound}")
 
     (e_args, e_kw), = calls["E"]
     e_err = 0.0
@@ -213,12 +337,13 @@ def main():
                     float((idx_k - idx_p).abs().max()))
     e_ms = cuda_ms(lambda: at1_alloc.at1_allocate_block(*e_args, **e_kw), 20, 3)
     e_pms = cuda_ms(lambda: at1_alloc.at1_allocate_torch(*e_args, **e_kw), 3, 1)
+    e_bound = row("at1_allocate_block", "at1_alloc.cu", "pallas_alloc.py:362",
+                  e_err, e_ms, e_pms, nbytes(*e_args, idx_k, wl_k),
+                  e_args[3].numel() * OPS["E_frame"])
     log(f"[3 kernels] E at1_allocate_block {tuple(e_args[0].shape)}: bfu_idx/wl "
         f"equal (auto and --bfuidxconst 4); kernel {e_ms:.3f} ms, "
-        f"plain {e_pms:.3f} ms")
-    rows.append(("at1_allocate_block", "atracdenc_tpu_torch/csrc/at1_alloc.cu",
-                 "atracdenc_tpu/ops/pallas_alloc.py:362", e_err, e_ms, e_pms))
-    del calls, b_calls, a_args, c_args, e_args
+        f"plain {e_pms:.3f} ms, {e_bound}")
+    del calls, b_calls, a_args, c_args, d_args, e_args, outk
     torch.cuda.empty_cache()
 
     # --- 4. golden (reference-oracle frames)
@@ -226,19 +351,21 @@ def main():
     g3 = np.load(os.path.join(gdir, "at3_golden.npz"))
     gd = np.load(os.path.join(gdir, "at3_default_golden.npz"))
     counts0 = counts()
-    for label, pcm_g, ref, floor, nogain in (
+    for (label, pcm_g, ref, floor, nogain), fused in itertools.product((
             ("at3_golden (no gain, no tonal)", g3["pcm_in"], g3["ref_frames"],
              0.99, True),
             ("at3_default_golden pcm_in", gd["pcm_in"], gd["ref_frames"],
              0.98, False),
             ("at3_default_golden pcm_stress", gd["pcm_stress"], gd["ref_stress"],
-             0.85, False)):
+             0.85, False)), (False, True)):
         planes = encoder.encode_track(pcm_g, no_gain_control=nogain,
-                                      no_tonal=nogain, device="cuda")
+                                      no_tonal=nogain, device="cuda",
+                                      fused_memo=fused)
         ident = float((frame.pack(planes, 384) == ref).mean())
-        log(f"[4 golden] {label}: byte identity vs reference {ident:.4f} "
-            f"(floor {floor})")
-        assert ident >= floor, label
+        memo = "fused memo (D)" if fused else "A + B memo"
+        log(f"[4 golden] {label}, {memo}: byte identity vs reference "
+            f"{ident:.4f} (floor {floor})")
+        assert ident >= floor, (label, memo)
     # ATRAC1: identity over every frame of the reference AEA (its first
     # frame is the writer's zero dummy), as the port's CPU tests count it
     for name, ref_file, floor in (("at1_golden", "at1_ref.aea", 0.93),
@@ -253,7 +380,7 @@ def main():
             f"{ident:.5f} (floor {floor})")
         assert ident >= floor, name
     counts1 = counts()
-    assert all(b > a for a, b in zip(counts0, counts1)), (counts0, counts1)
+    assert all(counts1[k] > counts0[k] for k in "ABCDE"), (counts0, counts1)
     frames_ref, ch, _, _ = aea.read(os.path.join(gdir, "at1_ref.aea"))
     up = at1_frame.unpack(frames_ref)
     split = {k: torch.from_numpy(v.reshape((-1, ch) + v.shape[1:]).swapaxes(0, 1)
@@ -283,20 +410,20 @@ def main():
     log(f"[5 rate] kernel C and the tensor-op rate path: equal planes and "
         f"bytes on {sub.shape[0]} x {NFRAMES} stereo frames")
 
-    # --- 6. ATRAC3 real size, main path (encode + device packer); A, B, C's
+    # --- 6. ATRAC3 real size, main path (encode + device packer); the
     # counters zeroed just before and read just after
-    opts = dict(no_gain_control=False, no_tonal=False)
+    opts = default
     encoder.encode_frames_bytes(x, **opts)                  # warm
     torch.cuda.synchronize()
-    quant_cost.launches = greedy.launches = rate_control.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     dev_bytes = encoder.encode_frames_bytes(x, **opts)
     torch.cuda.synchronize()
     t_dev = time.perf_counter() - t0
-    launches = {"quant_cost_plain": quant_cost.launches,
-                "greedy_scan": greedy.launches,
-                "rate_control_block": rate_control.launches}
-    assert all(v > 0 for v in launches.values()), launches
+    c6 = counts()
+    launches = {"quant_cost_plain": c6["A"], "greedy_scan": c6["B"],
+                "rate_control_block": c6["C"], "bisect_block": f_launches}
+    assert all(c6[k] > 0 for k in "ABC") and c6["D"] == 0, c6
     fr_dev = runtime.to_numpy(dev_bytes)
     t_all_dev = time.perf_counter() - t0
     # encode + host packer, and the device packer alone on the same planes
@@ -332,7 +459,7 @@ def main():
     # before and read just after
     at1_pack.pack_device(at1_units(at1_encoder.encode_frames(x1)))   # warm
     torch.cuda.synchronize()
-    at1_alloc.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     planes1 = at1_encoder.encode_frames(x1)
     units_dev = at1_pack.pack_device(at1_units(planes1))
@@ -370,14 +497,14 @@ def main():
     want = -(-n // 1024)
     assert frames_cli.shape == (want, 384), (frames_cli.shape, want)
     assert info["codec"] == oma.CODEC_ATRAC3
-    assert all(b > a for a, b in zip(c0[:3], c1[:3])), (c0, c1)
+    assert all(c1[k] > c0[k] for k in "ABC"), (c0, c1)
     log(f"[8 cli] 30 s WAV -> {os.path.relpath(oma_out, ROOT)}: "
         f"{frames_cli.shape[0]} frames of 384 bytes, launches {c0} -> {c1}")
     aea_out = os.path.join(work, "out30s.aea")
     wav_back = os.path.join(work, "back30s.wav")
     cli.main(["-e", "atrac1", "-i", wav_in, "-o", aea_out, "--nostdout"])
     c2 = counts()
-    assert c2[3] > c1[3], (c1, c2)
+    assert c2["E"] > c1["E"], (c1, c2)
     cli.main(["-d", "-i", aea_out, "-o", wav_back, "--nostdout"])
     units_cli, ch, _, length = aea.read(aea_out)
     back, rate = audio.read(wav_back)
@@ -389,12 +516,32 @@ def main():
     assert abs(gain_db) < 1.0, gain_db
     log(f"[8 cli] 30 s WAV -> {os.path.relpath(aea_out, ROOT)}: "
         f"{units_cli.shape[0]} sound units, -d back to WAV: RMS "
-        f"{gain_db:+.3f} dB against the input, E launches {c1[3]} -> {c2[3]}")
+        f"{gain_db:+.3f} dB against the input, E launches {c1['E']} -> {c2['E']}")
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": err, "ms": ms,
-         "plain_ms": pms} for name, src, rep, err, ms, pms in rows]}))
+    # --- 9. the fused memo at real size: phase 6's corpus and options with
+    # kernel D computing the memo; the counters zeroed just before
+    fused = dict(opts, fused_memo=True)
+    encoder.encode_frames_bytes(x, **fused)                 # warm
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    fused_bytes = encoder.encode_frames_bytes(x, **fused)
+    torch.cuda.synchronize()
+    t_fused = time.perf_counter() - t0
+    c9 = counts()
+    launches["quant_cost_full"] = c9["D"]
+    assert c9["D"] > 0 and c9["B"] > 0 and c9["C"] > 0 and c9["A"] == 0, c9
+    fr_fused = runtime.to_numpy(fused_bytes)
+    assert fr_fused.shape == fr_dev.shape, fr_fused.shape
+    ident = float(np.mean(fr_fused == fr_dev))
+    log(f"[9 fused memo] {STREAMS} x {NFRAMES} stereo frames: encode + device "
+        f"pack with kernel D {t_fused:.3f} s = {n_st / t_fused:.1f} stereo "
+        f"frames/s (phase 6, A + B memo: {n_st / t_dev:.1f}); byte identity "
+        f"with phase 6's bytes {ident!r} (floor 0.999) | {smi} | launches {c9}")
+    assert ident >= 0.999, ident
+
+    print(json.dumps({"kernels": [dict(r, launches=launches[name])
+                                  for name, r in rows.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

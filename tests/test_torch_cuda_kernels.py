@@ -1,9 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card, at
 shapes and values the main path rarely gives them: ragged row and frame
 counts, one-candidate and full-length scans, silent and tiny blocks,
-rounding ties, dense tonal planes, both rate-control modes, and for the
-ATRAC1 rate control every BFU gated, every band short and every
---bfuidxconst value.
+rounding ties, EA candidates on the 0.25 boundary, dense tonal planes,
+both rate-control modes and the single bisection, and for the ATRAC1 rate
+control every BFU gated, every band short and every --bfuidxconst value.
 
 Needs a GPU and nvcc, so every test is marked ``cuda`` and skips elsewhere.
 The machine with the card has no JAX, and tests/conftest.py imports it, so
@@ -11,15 +11,16 @@ run this file there without the conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances are chip_smoke.py's: B, C and E bit-equal; A's vlc equal and
-its err within 4 ulp (e1 is an f32 sum taken in another order).
+Tolerances are chip_smoke.py's: B, C, E and F bit-equal; A's and D's vlc
+equal and their err within 4 ulp (the plain lanes' e1 is an f32 sum taken
+in another order; D's EA lanes share the plain version's order).
 """
 import numpy as np
 import pytest
 import torch
 
 from atracdenc_tpu_torch.ops import at1_alloc, greedy, quant_cost, rate_control
-from atracdenc_tpu_torch.shared import tables as T
+from atracdenc_tpu_torch.models.atrac3 import tables as T
 
 pytestmark = pytest.mark.cuda
 
@@ -56,6 +57,33 @@ def test_quant_cost_kernel(dev, n):
     torch.cuda.synchronize()
     assert torch.equal(vlc_k, vlc_p)
     assert int(_ulp(err_k, err_p).max()) <= 4
+
+
+def _check_quant_full(x, dev):
+    mask = torch.as_tensor(T.GATHER_MASK, device=dev)
+    err_k, vlc_k = quant_cost.quant_cost_full(x, mask)
+    err_p, vlc_p = quant_cost.quant_cost_full_torch(x, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(vlc_k, vlc_p), int((vlc_k != vlc_p).sum())
+    assert int(_ulp(err_k, err_p).max()) <= 4
+
+
+@pytest.mark.parametrize("n", [1, 3, 37, 1000])
+def test_quant_cost_full_kernel(dev, n):
+    _check_quant_full(torch.from_numpy(_quant_inputs(n)).to(dev), dev)
+
+
+def test_quant_cost_full_kernel_edges(dev):
+    """Candidates straddling the |delta| < 0.25 boundary at wordlen 2, and
+    values a hair from the clip, in every EA group."""
+    rng = np.random.default_rng(3)
+    x = np.zeros((3, 32, 128), np.float32)
+    x[0] = (np.round(rng.uniform(-2, 2, (32, 128)))
+            + rng.choice([0.249, 0.25, 0.251, 0.75], (32, 128))) / 2.5
+    x[1] = rng.choice([-0.9999, 0.9999], (32, 128))
+    x[2] = (np.round(rng.uniform(-31, 31, (32, 128))) + 0.25) / 31.5
+    x = (np.clip(x, -0.9999, 0.9999) * T.GATHER_MASK).astype(np.float32)
+    _check_quant_full(torch.from_numpy(x).to(dev), dev)
 
 
 @pytest.mark.parametrize("rows,L", [(1, 1), (129, 7), (1000, 32), (4097, 128)])
@@ -116,6 +144,18 @@ def test_rate_control_kernel(dev, n, dense_tonal, auto):
         assert torch.equal(k.to(p.dtype), p), name
 
 
+@pytest.mark.parametrize("n,dense_tonal", [(1, False), (130, False),
+                                           (130, True), (5000, False)])
+def test_bisect_kernel(dev, n, dense_tonal):
+    ins = {k: torch.from_numpy(v).to(dev)
+           for k, v in _rate_inputs(n, n + dense_tonal, dense_tonal).items()}
+    wl_k = rate_control.bisect_block(**ins)
+    wl_p = rate_control.bisect_torch(**ins)
+    _, _, wl_c = rate_control.rate_control_block(**ins, auto=False)
+    torch.cuda.synchronize()
+    assert torch.equal(wl_k, wl_p) and torch.equal(wl_k, wl_c)
+
+
 def _at1_inputs(n, case):
     rng = np.random.default_rng(n)
     sfi = rng.integers(0, 64, (n, 52)).astype(np.int32)
@@ -144,9 +184,10 @@ def test_at1_allocate_kernel(dev, n, case, const):
 
 
 def test_wrappers_refuse_bad_shapes(dev):
-    with pytest.raises(ValueError):
-        quant_cost.quant_cost_plain(torch.zeros((2, 32, 64), device=dev),
-                                    torch.ones((32, 128), dtype=torch.bool, device=dev))
+    for fn in (quant_cost.quant_cost_plain, quant_cost.quant_cost_full):
+        with pytest.raises(ValueError):
+            fn(torch.zeros((2, 32, 64), device=dev),
+               torch.ones((32, 128), dtype=torch.bool, device=dev))
     z = torch.zeros((4, 8), device=dev)
     with pytest.raises(ValueError):
         greedy.greedy_scan(z, z, z.bool(), z[:, 0], z[:3, 0])
@@ -155,6 +196,8 @@ def test_wrappers_refuse_bad_shapes(dev):
     ins["t_vlc"] = ins["t_vlc"][..., :7]
     with pytest.raises(ValueError):
         rate_control.rate_control_block(**ins)
+    with pytest.raises(ValueError):
+        rate_control.bisect_block(**ins)
     sfi, energy, short, loud = [x.to(dev) for x in _at1_inputs(3, "random")]
     with pytest.raises(ValueError):
         at1_alloc.at1_allocate_block(sfi, energy, short[:, :2], loud)

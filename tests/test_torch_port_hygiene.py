@@ -1,5 +1,5 @@
-"""Hygiene of the PyTorch port: no JAX anywhere in its import graph, TF32
-off, and no silent CPU fallback on a CUDA path."""
+"""Hygiene of the PyTorch port: neither JAX nor the JAX package anywhere in
+its import graph, TF32 off, and no silent CPU fallback on a CUDA path."""
 import ast
 import os
 import subprocess
@@ -17,13 +17,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _NO_JAX = r"""
 import sys
 
-class RefuseJax:
+class Refuse:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
-            raise ImportError("jax is refused in this process")
+        if name.split(".")[0] in ("jax", "jaxlib", "atracdenc_tpu"):
+            raise ImportError(f"{name} is refused in this process")
         return None
 
-sys.meta_path.insert(0, RefuseJax())
+sys.meta_path.insert(0, Refuse())
 import numpy as np
 import torch
 torch.set_num_threads(1)
@@ -32,7 +32,7 @@ import atracdenc_tpu_torch
 for m in pkgutil.walk_packages(atracdenc_tpu_torch.__path__, "atracdenc_tpu_torch."):
     importlib.import_module(m.name)
 from atracdenc_tpu_torch.models.atrac3.encoder import encode_frames
-from atracdenc_tpu_torch.shared import frame
+from atracdenc_tpu_torch.models.atrac3 import frame
 from atracdenc_tpu_torch.runtime import to_numpy
 rng = np.random.default_rng(0)
 pcm = torch.from_numpy((0.1 * rng.standard_normal((2, 2048))).astype(np.float32))
@@ -40,7 +40,7 @@ planes = encode_frames(pcm, no_gain_control=False, no_tonal=False)
 out = frame.pack({k: to_numpy(v) for k, v in planes.items()}, 384)
 assert out.shape == (2, 384)
 from atracdenc_tpu_torch.models.atrac1 import decoder, device_pack, encoder as at1
-from atracdenc_tpu_torch.shared import at1_frame
+from atracdenc_tpu_torch.models.atrac1 import frame as at1_frame
 pcm1 = (0.1 * rng.standard_normal((2, 512 * 4))).astype(np.float32)
 planes1 = at1.encode_track(pcm1, device="cpu")
 merged = {k: np.swapaxes(planes1[k], 0, 1).reshape((-1,) + planes1[k].shape[2:])
@@ -49,12 +49,14 @@ units = at1_frame.pack(merged)
 assert units.shape == (8, 212)
 assert (device_pack.pack_device({k: torch.from_numpy(v) for k, v in merged.items()}).numpy() == units).all()
 assert decoder.decode_track(planes1, exact=False, device="cpu").shape == (2, 512 * 4)
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+assert not any(m.split(".")[0] in ("jax", "atracdenc_tpu") for m in sys.modules)
 print("ok")
 """
 
 
 def test_port_imports_and_encodes_without_jax():
+    """The whole port imports and encodes in a process that refuses both
+    ``jax`` and ``atracdenc_tpu``."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True,
                          text=True, env=env, cwd=ROOT, timeout=300)
@@ -73,8 +75,8 @@ def _imported_modules(path):
 
 
 def test_only_shared_imports_the_jax_package():
-    """The port and chip_smoke.py import nothing of JAX, and take the host
-    modules of atracdenc_tpu only through atracdenc_tpu_torch/shared.py."""
+    """No file of the port, and not chip_smoke.py, imports JAX or anything
+    of atracdenc_tpu: the port keeps its own copies of the host modules."""
     pkg = os.path.join(ROOT, "atracdenc_tpu_torch")
     files = [os.path.join(ROOT, "chip_smoke.py")] + [
         os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
@@ -82,9 +84,8 @@ def test_only_shared_imports_the_jax_package():
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib"), (path, mod)
-            if top == "atracdenc_tpu":
-                assert path == os.path.join(pkg, "shared.py"), (path, mod)
+            assert top not in ("jax", "jaxlib", "atracdenc_tpu"), (path, mod)
+    assert not os.path.exists(os.path.join(pkg, "shared.py"))
 
 
 def test_chip_smoke_refuses_without_cuda():
@@ -116,7 +117,8 @@ def _missing_library():
 
 
 @pytest.mark.parametrize("name", ["quant_cost", "greedy", "rate_control",
-                                  "at1_alloc"])
+                                  "at1_alloc", "quant_cost_full",
+                                  "bisect_block"])
 def test_non_cpu_tensor_without_library_raises(monkeypatch, name):
     """A tensor that is not on the CPU goes to the kernel, never to the
     plain version: with the library missing the wrapper raises (meta
@@ -124,25 +126,28 @@ def test_non_cpu_tensor_without_library_raises(monkeypatch, name):
     monkeypatch.setattr(kernels, "library", _missing_library)
     meta = torch.device("meta")
     with pytest.raises(RuntimeError, match="nvcc"):
-        if name == "quant_cost":
-            quant_cost.quant_cost_plain(
-                torch.zeros((2, 32, 128), device=meta),
-                torch.ones((32, 128), dtype=torch.bool, device=meta))
+        if name in ("quant_cost", "quant_cost_full"):
+            fn = getattr(quant_cost, "quant_cost_plain" if name == "quant_cost"
+                         else name)
+            fn(torch.zeros((2, 32, 128), device=meta),
+               torch.ones((32, 128), dtype=torch.bool, device=meta))
         elif name == "greedy":
             z = torch.zeros((4, 32), device=meta)
             greedy.greedy_scan(z, z, z.bool(), z[:, 0], z[:, 0])
-        elif name == "rate_control":
+        elif name in ("rate_control", "bisect_block"):
             f = torch.zeros((3, 32), device=meta)
             i = f.int()
             m = torch.zeros((3, 32, 8), device=meta)
-            rate_control.rate_control_block(
-                f, f.bool(), i, f[:, 0], i[:, 0], i[:, 0], m, m.int(), m.int(),
-                i, i, i, i, m.int())
+            fn = getattr(rate_control, "rate_control_block"
+                         if name == "rate_control" else name)
+            fn(f, f.bool(), i, f[:, 0], i[:, 0], i[:, 0], m, m.int(), m.int(),
+               i, i, i, i, m.int())
         else:
             e = torch.zeros((3, 52), device=meta)
             at1_alloc.at1_allocate_block(e.int(), e, e[:, :3].bool(), e[:, 0])
     assert quant_cost.launches == 0 and greedy.launches == 0 \
         and rate_control.launches == 0 and at1_alloc.launches == 0
+    assert quant_cost.full_launches == 0 and rate_control.bisect_launches == 0
 
 
 def test_cpu_route_takes_the_plain_version():

@@ -63,10 +63,11 @@ def test_plain_matches_pallas_interpret():
 
 
 def test_cuda_vlc_table_literal_matches_tables():
-    """The constant-memory table in csrc/quant_cost.cu is the step-function
-    codebook of the JAX package (bitalloc._vlc_bits_arith)."""
+    """The constant-memory table of kernels A and D (csrc/quant_block.cuh)
+    is the step-function codebook of the JAX package
+    (bitalloc._vlc_bits_arith)."""
     src = os.path.join(os.path.dirname(quant_cost.__file__), "..", "csrc",
-                       "quant_cost.cu")
+                       "quant_block.cuh")
     with open(src) as fp:
         body = re.search(r"c_vlc_step\[7\]\[64\] = \{(.*?)\};", fp.read(), re.S)
     rows = re.findall(r"\{([^{}]*)\}", body.group(1))
