@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -35,12 +36,14 @@ _SIGNATURES = {
     "atrac3_quant_cost_full": [_P, _P, _P, _P, _L, _P],
     # (a, b, elig, e1, e2, e2_out, accept, rows, L, stream)
     "atrac3_greedy_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # () -> bytes of kernel B's dynamic shared memory a block
+    "atrac3_greedy_smem_bytes": [],
     # (csfi, gated, tcounts, spread, target, num_bfu, err, clc, vlc,
     #  t_active, t_pos, t_len, t_bfu, t_vlc, fix, xdiv,
-    #  wl_out, num_bfu_out, mode_out, n, auto, stream)
-    "atrac3_rate_control": [_P] * 19 + [_I, _I, _P],
-    # (the 16 inputs of atrac3_rate_control, wl_out, n, stream)
-    "atrac3_bisect": [_P] * 17 + [_I, _P],
+    #  wl_out, num_bfu_out, mode_out, n, clc_stride, auto, stream)
+    "atrac3_rate_control": [_P] * 19 + [_I, _I, _I, _P],
+    # (the 16 inputs of atrac3_rate_control, wl_out, n, clc_stride, stream)
+    "atrac3_bisect": [_P] * 17 + [_I, _I, _P],
     # (sfi, energy, short_flags, loud, ath, fix_long, fix_short, band, specs,
     #  amount, boost_bits, boost_pos, n_boost, wl_out, idx_out, n,
     #  bfu_idx_const, stream)
@@ -75,12 +78,13 @@ def build(verbose=False):
     """Compile csrc/*.cu into the shared library (if not yet built): one
     ``nvcc -c`` per source, all started together, then one link.
 
-    Returns (path, seconds spent compiling; 0.0 when already built).
-    verbose=True adds ``-Xptxas -v`` and prints nvcc's report (registers,
-    shared memory and spills of every kernel)."""
+    Returns (path, seconds spent compiling, nvcc's report); 0.0 and "" when
+    already built.  verbose=True adds ``-Xptxas -v`` and prints the report
+    (registers, shared memory, stack and spills of every kernel; see
+    ``ptxas_usage``)."""
     out = library_path()
     if os.path.exists(out):
-        return out, 0.0
+        return out, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     tmp = f"{out}.{os.getpid()}"
@@ -92,11 +96,12 @@ def build(verbose=False):
         jobs.append((obj, subprocess.Popen(
             [nvcc] + NVCC_FLAGS + extra + ["-c", "-o", obj, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    objs, failed = [], []
+    objs, failed, reports = [], [], []
     for obj, proc in jobs:
         report = proc.communicate()[0]
         if verbose and report:
             print(report)
+        reports.append(report)
         objs.append(obj)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n{report}")
@@ -112,7 +117,30 @@ def build(verbose=False):
     if failed:
         raise RuntimeError("\n".join(failed))
     os.replace(f"{tmp}.so", out)
-    return out, time.perf_counter() - t0
+    return out, time.perf_counter() - t0, "\n".join(reports)
+
+
+def ptxas_usage(report):
+    """{mangled kernel name: {"registers", "smem", "stack", "spill"}} (bytes
+    but registers) from the ``-Xptxas -v`` lines of ``build``'s report."""
+    usage, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            usage.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                         ("spill", r"(\d+) bytes spill stores"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("smem", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                usage[name][key] = int(m.group(1))
+    return usage
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,7 +148,7 @@ def library():
     """The loaded kernel library (built on first use).  Raises when it
     cannot be built or loaded: a CUDA tensor never falls back to the plain
     version."""
-    path, _ = build()
+    path, _, _ = build()
     lib = ctypes.CDLL(path)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -36,22 +36,19 @@ def greedy_scan(a, b, elig, e1, e2):
     global launches
     lib = kernels.library()
     rows, L = a.shape
-    if a.dtype != torch.float32 or b.shape != a.shape or elig.shape != a.shape \
+    f32 = torch.float32
+    if any(x.dtype != f32 for x in (a, b, e1, e2)) or elig.dtype != torch.bool \
+            or b.shape != a.shape or elig.shape != a.shape \
             or e1.shape != (rows,) or e2.shape != (rows,):
-        raise ValueError("greedy_scan: need a, b, elig [rows, L] and e1, e2 "
-                         "[rows] f32")
-    # [L, rows]: at every step neighbouring threads read neighbouring words
-    at = a.t().contiguous()
-    bt = b.to(torch.float32).t().contiguous()
-    et = elig.to(torch.uint8).t().contiguous()
-    e1c = e1.to(torch.float32).contiguous()
-    e2c = e2.to(torch.float32).contiguous()
-    e2_out = torch.empty(rows, dtype=torch.float32, device=a.device)
-    acc = torch.empty((L, rows), dtype=torch.uint8, device=a.device)
-    kernels.require_cuda("greedy_scan", at, bt, et, e1c, e2c, e2_out, acc)
+        raise ValueError("greedy_scan: need a, b [rows, L] f32, elig [rows, L] "
+                         "bool and e1, e2 [rows] f32")
+    # the kernel reads and writes the caller's row-major tensors in place
+    e2_out = torch.empty(rows, dtype=f32, device=a.device)
+    accept = torch.empty((rows, L), dtype=torch.bool, device=a.device)
+    kernels.require_cuda("greedy_scan", a, b, elig, e1, e2, e2_out, accept)
     kernels.check(lib.atrac3_greedy_scan(
-        at.data_ptr(), bt.data_ptr(), et.data_ptr(), e1c.data_ptr(),
-        e2c.data_ptr(), e2_out.data_ptr(), acc.data_ptr(), rows, L,
+        a.data_ptr(), b.data_ptr(), elig.data_ptr(), e1.data_ptr(),
+        e2.data_ptr(), e2_out.data_ptr(), accept.data_ptr(), rows, L,
         kernels.stream_ptr(a)), "greedy_scan")
     launches += 1
-    return e2_out, acc.t().bool()
+    return e2_out, accept

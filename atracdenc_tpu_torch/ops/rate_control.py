@@ -2,11 +2,12 @@
 
 * C, ``rate_control_block``: counterpart of
   ``atracdenc_tpu/ops/pallas_rate.py::rate_control_block``.  The CUDA
-  kernel is ``csrc/rate_control.cu`` (one thread per channel-frame,
-  frame-minor inputs); its plain version, ``rate_control_torch``, is the
-  XLA path of ``atracdenc_tpu/models/atrac3/bitalloc.py::allocate``
-  (:451-476): the batched bisection, the energy boost and the shrink loop
-  written with the tensor ops of ``models/atrac3/bitalloc.py``.
+  kernel is ``csrc/rate_control.cu`` (one warp per channel-frame, on the
+  encoder's frame-major planes as they are); its plain version,
+  ``rate_control_torch``, is the XLA path of
+  ``atracdenc_tpu/models/atrac3/bitalloc.py::allocate`` (:451-476): the
+  batched bisection, the energy boost and the shrink loop written with the
+  tensor ops of ``models/atrac3/bitalloc.py``.
 * F, ``bisect_block``: counterpart of
   ``atracdenc_tpu/ops/pallas_alloc.py::bisect_block``, one lambda
   bisection at a fixed num_bfu (C's first round with the shrink off).  The
@@ -62,28 +63,35 @@ def bisect_torch(csfi, gated, tonal_counts, spread, target, num_bfu, err,
                             {"err": err, "clc": clc, "vlc": vlc}, target)
 
 
-def _frame_minor(name, csfi, gated, tonal_counts, spread, target, num_bfu,
-                 err, clc, vlc, t_active, t_pos, t_len, t_bfu, t_vlc):
-    """The 14 inputs of kernels C and F in their frame-minor layout
-    ([..., *tail] -> [*tail, n]) and dtypes, then the tables fix and xdiv."""
+def _planes(name, csfi, gated, tonal_counts, spread, target, num_bfu, err,
+            clc, vlc, t_active, t_pos, t_len, t_bfu, t_vlc):
+    """The 14 inputs of kernels C and F in the encoder's frame-major layout
+    ([..., 32], [..., 32, 8], [...]), then the tables fix and xdiv; and
+    clc's frame stride.  Inputs of the kernel's dtype and layout pass as
+    they are, and clc may be one [32, 8] table broadcast over the frames
+    (as ``quant_tensors`` gives it), which the kernel reads in place."""
     lead = tuple(spread.shape)
-    n = spread.numel()
 
-    def fm(x, dtype, tail):
+    def plane(x, dtype, tail):
         if tuple(x.shape) != lead + tail:
             raise ValueError(f"{name}: got shape {tuple(x.shape)}, expected "
                              f"{lead + tail}")
-        return x.reshape((n,) + tail).to(dtype).permute(
-            *range(1, len(tail) + 1), 0).contiguous()
+        return x.to(dtype).contiguous()
 
-    i32, f32, u8 = torch.int32, torch.float32, torch.uint8
+    i32, f32 = torch.int32, torch.float32
     b, m, s = (32,), (32, MAX_WL), ()
+    if tuple(clc.shape) == lead + m and clc.dtype == i32 \
+            and clc.stride()[-2:] == (MAX_WL, 1) and not any(clc.stride()[:-2]):
+        clc, clc_stride = clc.as_strided(m, (MAX_WL, 1)), 0
+    else:
+        clc, clc_stride = plane(clc, i32, m), 32 * MAX_WL
     c = _consts(csfi.device)
-    return [fm(csfi, f32, b), fm(gated, u8, b), fm(tonal_counts, i32, b),
-            fm(spread, f32, s), fm(target, i32, s), fm(num_bfu, i32, s),
-            fm(err, f32, m), fm(clc, i32, m), fm(vlc, i32, m),
-            fm(t_active, i32, b), fm(t_pos, i32, b), fm(t_len, i32, b),
-            fm(t_bfu, i32, b), fm(t_vlc, i32, m), c["fix"], c["xdiv"]]
+    return [plane(csfi, f32, b), plane(gated, torch.bool, b),
+            plane(tonal_counts, i32, b), plane(spread, f32, s),
+            plane(target, i32, s), plane(num_bfu, i32, s), plane(err, f32, m),
+            clc, plane(vlc, i32, m), plane(t_active, i32, b),
+            plane(t_pos, i32, b), plane(t_len, i32, b), plane(t_bfu, i32, b),
+            plane(t_vlc, i32, m), c["fix"], c["xdiv"]], clc_stride
 
 
 def bisect_block(csfi, gated, tonal_counts, spread, target, num_bfu, err,
@@ -103,15 +111,14 @@ def bisect_block(csfi, gated, tonal_counts, spread, target, num_bfu, err,
     global bisect_launches
     lib = kernels.library()
     lead = tuple(spread.shape)
-    n = spread.numel()
-    ins = _frame_minor("bisect_block", *args)
-    wl = torch.empty((32, n), dtype=torch.int32, device=csfi.device)
+    ins, clc_stride = _planes("bisect_block", *args)
+    wl = torch.empty(lead + (32,), dtype=torch.int32, device=csfi.device)
     kernels.require_cuda("bisect_block", *ins, wl)
     kernels.check(lib.atrac3_bisect(
-        *[t.data_ptr() for t in ins], wl.data_ptr(), n,
-        kernels.stream_ptr(csfi)), "bisect_block")
+        *[t.data_ptr() for t in ins], wl.data_ptr(), spread.numel(),
+        clc_stride, kernels.stream_ptr(csfi)), "bisect_block")
     bisect_launches += 1
-    return wl.t().reshape(lead + (32,))
+    return wl
 
 
 def rate_control_block(csfi, gated, tonal_counts, spread, target, num_bfu,
@@ -135,19 +142,17 @@ def rate_control_block(csfi, gated, tonal_counts, spread, target, num_bfu,
     global launches
     lib = kernels.library()
     lead = tuple(spread.shape)
-    n = spread.numel()
-    ins = _frame_minor("rate_control_block", csfi, gated, tonal_counts, spread,
-                       target, num_bfu, err, clc, vlc, t_active, t_pos, t_len,
-                       t_bfu, t_vlc)
-    i32 = torch.int32
-    wl = torch.empty((32, n), dtype=i32, device=csfi.device)
-    nb = torch.empty(n, dtype=i32, device=csfi.device)
-    mode = torch.empty(n, dtype=torch.uint8, device=csfi.device)
-    outs = [wl, nb, mode]
-    kernels.require_cuda("rate_control_block", *ins, *outs)
+    ins, clc_stride = _planes("rate_control_block", csfi, gated, tonal_counts,
+                              spread, target, num_bfu, err, clc, vlc, t_active,
+                              t_pos, t_len, t_bfu, t_vlc)
+    dev = csfi.device
+    wl = torch.empty(lead + (32,), dtype=torch.int32, device=dev)
+    nb = torch.empty(lead, dtype=torch.int32, device=dev)
+    mode = torch.empty(lead, dtype=torch.bool, device=dev)
+    kernels.require_cuda("rate_control_block", *ins, wl, nb, mode)
     kernels.check(lib.atrac3_rate_control(
-        *[t.data_ptr() for t in ins], *[t.data_ptr() for t in outs], n,
-        1 if auto else 0, kernels.stream_ptr(csfi)), "rate_control_block")
+        *[t.data_ptr() for t in ins], wl.data_ptr(), nb.data_ptr(),
+        mode.data_ptr(), spread.numel(), clc_stride, 1 if auto else 0,
+        kernels.stream_ptr(csfi)), "rate_control_block")
     launches += 1
-    return (nb.reshape(lead), mode.reshape(lead).bool(),
-            wl.t().reshape(lead + (32,)))
+    return nb, mode, wl

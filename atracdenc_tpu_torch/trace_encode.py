@@ -41,6 +41,54 @@ def _corpus(streams, nframes, dev):
     return torch.from_numpy(pcm.astype(np.float32)).to(dev)
 
 
+def cuda_ms(fn, reps, warmup=1):
+    """Mean ms of fn() over reps runs, by CUDA events, after warmup runs."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def capture(sites, fn):
+    """Run fn() with each (module, name, key) call site wrapped to record
+    its arguments; returns {key: [(args, kwargs), ...]}."""
+    calls = {key: [] for _, _, key in sites}
+    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
+    for (mod, name, key), (_, _, orig) in zip(sites, originals):
+        def wrapped(*a, _orig=orig, _key=key, **kw):
+            calls[_key].append((a, kw))
+            return _orig(*a, **kw)
+        setattr(mod, name, wrapped)
+    try:
+        fn()
+    finally:
+        for mod, name, orig in originals:
+            setattr(mod, name, orig)
+    assert all(calls.values()), {k: len(v) for k, v in calls.items()}
+    return calls
+
+
+def device_kernels(prof):
+    """[(kernel name, device ms, launches)] of a torch.profiler run: the
+    device-side kernel events only (a CPU op's self device time is the same
+    kernels counted again)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = []
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if dt > 0 and getattr(ev, "device_type", cuda) == cuda:
+            out.append((ev.key, dt / 1e3, ev.count))
+    return out
+
+
 def _stage_times(x, encode, stages):
     """Wrap the stages (module, name, label) with synchronised timers;
     returns ms per stage for one run."""
@@ -90,16 +138,7 @@ def _trace(x, encode, stages, items):
         encode(x)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    kern = []
-    cuda = torch.autograd.DeviceType.CUDA
-    for ev in prof.key_averages():
-        dt = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        # device-side kernel events only (a CPU op's self device time is
-        # the same kernels counted again)
-        if dt > 0 and getattr(ev, "device_type", cuda) == cuda:
-            kern.append((ev.key, dt / 1e3, ev.count))
-    kern.sort(key=lambda r: -r[1])
+    kern = sorted(device_kernels(prof), key=lambda r: -r[1])
     busy = sum(r[1] for r in kern)
     return {"items": items, "wall_ms": wall, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall if wall > 0 else None,

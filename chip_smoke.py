@@ -5,7 +5,8 @@
 Phases (each asserts; any failure exits non-zero):
   1. device   — CUDA present; torch / CUDA versions, card name and power limit
   2. build    — nvcc builds csrc/*.cu (kernels A, B, C, D, E, F) from this
-                checkout, one nvcc per source, all at once
+                checkout, one nvcc per source, all at once; prints ptxas's
+                registers, shared memory, stack and spills of B, C and F
   3. kernels  — each kernel against its plain PyTorch version on the inputs
                 its path gives it: A, B, C at the ATRAC3 main path's 64
                 streams x 2 ch x 256 frames (A vlc equal and err within 4
@@ -78,21 +79,6 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps, warmup=1):
-    import torch
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def bench_corpus(streams, nframes):
     """bench.py's AT3 corpus: 997 Hz tone (ch1 at 0.8) + 0.05 noise, seed 42."""
     import numpy as np
@@ -106,9 +92,11 @@ def bench_corpus(streams, nframes):
 
 
 def nbytes(*tensors):
-    """Bytes of the tensors among the arguments (each counted once)."""
+    """Bytes of the tensors among the arguments (each counted once; a
+    tensor broadcast along an axis, stride 0, counts its data once)."""
     import torch
-    return sum(t.numel() * t.element_size() for t in tensors
+    return sum(t[tuple(0 if st == 0 else slice(None) for st in t.stride())]
+               .numel() * t.element_size() for t in tensors
                if isinstance(t, torch.Tensor))
 
 
@@ -117,25 +105,6 @@ def bound(n_bytes, n_ops):
     or for the operations at the f32 rate, whichever is longer."""
     b_ms, o_ms = n_bytes / HBM_BPS * 1e3, n_ops / F32_OPS * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
-
-
-def capture(sites, fn):
-    """Run fn() with each (module, name, key) call site wrapped to record
-    its arguments; returns {key: [(args, kwargs), ...]}."""
-    calls = {key: [] for _, _, key in sites}
-    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
-    for (mod, name, key), (_, _, orig) in zip(sites, originals):
-        def wrapped(*a, _orig=orig, _key=key, **kw):
-            calls[_key].append((a, kw))
-            return _orig(*a, **kw)
-        setattr(mod, name, wrapped)
-    try:
-        fn()
-    finally:
-        for mod, name, orig in originals:
-            setattr(mod, name, orig)
-    assert all(calls.values()), {k: len(v) for k, v in calls.items()}
-    return calls
 
 
 AT1_PLANES = ("short_mask", "bfu_idx", "wordlen", "sfi", "mant")
@@ -166,6 +135,7 @@ def main():
     from atracdenc_tpu_torch.models.atrac3 import bitalloc, device_pack, encoder
     from atracdenc_tpu_torch.ops import (at1_alloc, greedy, quant_cost,
                                          rate_control)
+    from atracdenc_tpu_torch.trace_encode import capture, cuda_ms
     counters = {"A": (quant_cost, "launches"), "B": (greedy, "launches"),
                 "C": (rate_control, "launches"),
                 "D": (quant_cost, "full_launches"),
@@ -191,9 +161,16 @@ def main():
     assert not torch.backends.cudnn.allow_tf32
 
     # --- 2. build
-    path, build_s = kernels.build(verbose=True)
-    kernels.library()
+    path, build_s, report = kernels.build(verbose=True)
+    lib = kernels.library()
     log(f"[2 build] {os.path.relpath(path, ROOT)} built in {build_s:.1f} s")
+    for fn, use in kernels.ptxas_usage(report).items():
+        if any(k in fn for k in ("greedy_scan", "rate_control", "bisect")):
+            log(f"[2 build] ptxas {fn}: {use.get('registers')} registers, "
+                f"{use.get('smem', 0)} B shared memory, {use.get('stack')} B "
+                f"stack, {use.get('spill')} B spill stores")
+    log(f"[2 build] greedy_scan_kernel: {lib.atrac3_greedy_smem_bytes()} B of "
+        f"dynamic shared memory a block (not in ptxas's count)")
 
     # --- 3. kernels at their paths' shapes: capture the inputs each kernel
     # gets during one encode of the bench corpus

@@ -11,7 +11,8 @@ run this file there without the conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances are chip_smoke.py's: B, C, E and F bit-equal; A's and D's vlc
+Tolerances are chip_smoke.py's: B, C, E and F bit-equal (B's NaN energies
+of wordlen-0 rows counted equal on both sides); A's and D's vlc
 equal and their err within 4 ulp (the plain lanes' e1 is an f32 sum taken
 in another order; D's EA lanes share the plain version's order).
 """
@@ -102,6 +103,34 @@ def test_greedy_kernel(dev, rows, L):
     assert torch.equal(e2_k, e2_p) and torch.equal(acc_k, acc_p)
 
 
+def _greedy_edge_inputs(rows, L, dev):
+    rng = np.random.default_rng(1000 * rows + L)
+    m = rng.integers(-32, 33, (rows, L))
+    mn = m + np.where(m >= 0, 1, -1)
+    inv2 = rng.random((rows, 1)).astype(np.float32) + 0.01
+    e2 = rng.random(rows).astype(np.float32) * 50.0
+    e2[::5] = np.nan                     # final_mantissas' wordlen-0 rows
+    args = [(m * m).astype(np.float32) * inv2, (mn * mn).astype(np.float32) * inv2,
+            rng.random((rows, L)) < 0.4, rng.random(rows).astype(np.float32) * 50.0,
+            e2]
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in args]
+
+
+# rows around kernel B's 64-row block, L around its 32-candidate chunk
+@pytest.mark.parametrize("rows", [1, 63, 65, 131])
+@pytest.mark.parametrize("L", [1, 7, 31, 32, 33, 64, 128])
+def test_greedy_kernel_tile_edges(dev, rows, L):
+    args = _greedy_edge_inputs(rows, L, dev)
+    assert args[2].dtype == torch.bool
+    e2_k, acc_k = greedy.greedy_scan(*args)
+    e2_p, acc_p = greedy.greedy_torch(*args)
+    torch.cuda.synchronize()
+    assert acc_k.dtype == torch.bool and torch.equal(acc_k, acc_p)
+    both_nan = torch.isnan(e2_k) & torch.isnan(e2_p)
+    assert bool(((e2_k == e2_p) | both_nan).all())
+    assert bool(torch.isnan(e2_k[::5]).all())
+
+
 def _rate_inputs(n, seed, dense_tonal):
     rng = np.random.default_rng(seed)
     shape = (n, 32)
@@ -154,6 +183,92 @@ def test_bisect_kernel(dev, n, dense_tonal):
     _, _, wl_c = rate_control.rate_control_block(**ins, auto=False)
     torch.cuda.synchronize()
     assert torch.equal(wl_k, wl_p) and torch.equal(wl_k, wl_c)
+
+
+def _rate_edge_inputs(n, num_bfu, dev, shared_clc):
+    """Every tonal slot active, err holding 0, NaN and FLT_MAX; clc either
+    per frame or one [32, 8] table broadcast over the frames, as the
+    encoder passes it."""
+    ins = _rate_inputs(n, 7 * n + num_bfu, True)
+    rng = np.random.default_rng(n + num_bfu)
+    ins["t_active"][:] = 1
+    ins["t_len"] = rng.integers(1, 4, (n, 32)).astype(np.int32)
+    ins["t_pos"] = np.sort(rng.integers(0, 1024, (n, 32)), -1).astype(np.int32)
+    ins["t_bfu"] = rng.integers(0, 32, (n, 32)).astype(np.int32)
+    ins["num_bfu"][:] = num_bfu
+    err = ins["err"]
+    pick = rng.random(err.shape)
+    err[pick < 0.1] = 0.0
+    err[(pick >= 0.1) & (pick < 0.2)] = np.nan
+    err[(pick >= 0.2) & (pick < 0.3)] = np.finfo(np.float32).max
+    out = {k: torch.from_numpy(v).to(dev) for k, v in ins.items()}
+    if shared_clc:
+        out["clc"] = out["clc"][0].expand(out["clc"].shape)
+    return out
+
+
+# n not a multiple of the 4 frames (warps) a block of kernels C and F holds
+@pytest.mark.parametrize("n", [13, 1003])
+@pytest.mark.parametrize("num_bfu", [1, 32])
+@pytest.mark.parametrize("shared_clc", [False, True])
+def test_rate_control_and_bisect_kernel_edges(dev, n, num_bfu, shared_clc):
+    ins = _rate_edge_inputs(n, num_bfu, dev, shared_clc)
+    for auto in (True, False):
+        out_k = rate_control.rate_control_block(**ins, auto=auto)
+        out_p = rate_control.rate_control_torch(**ins, auto=auto)
+        torch.cuda.synchronize()
+        for name, k, p in zip(("num_bfu", "mode", "wl"), out_k, out_p):
+            assert torch.equal(k.to(p.dtype), p), (name, auto)
+    wl_f = rate_control.bisect_block(**ins)
+    torch.cuda.synchronize()
+    assert torch.equal(wl_f, rate_control.bisect_torch(**ins))
+    assert torch.equal(wl_f, out_k[2])          # auto=False, the last round
+
+
+class _Spy:
+    """The kernel library, recording the arguments of every entry call."""
+
+    def __init__(self, lib):
+        self.lib, self.calls = lib, []
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+
+        def call(*args):
+            self.calls.append(args)
+            return fn(*args)
+        return call
+
+
+def test_wrappers_make_no_layout_copy(dev, monkeypatch):
+    """Kernels B, C and F get the caller's tensors themselves (their
+    data_ptr reaches the launch) and write the returned tensors directly."""
+    from atracdenc_tpu_torch import kernels
+    spy = _Spy(kernels.library())
+    monkeypatch.setattr(kernels, "library", lambda: spy)
+
+    args = _greedy_edge_inputs(300, 64, dev)
+    e2_out, accept = greedy.greedy_scan(*args)
+    ptrs = spy.calls[-1]
+    assert list(ptrs[:5]) == [a.data_ptr() for a in args]
+    assert ptrs[5:7] == (e2_out.data_ptr(), accept.data_ptr())
+    assert accept.dtype == torch.bool and accept.shape == (300, 64)
+
+    ins = _rate_edge_inputs(37, 32, dev, shared_clc=True)
+    names = ("csfi", "gated", "tonal_counts", "spread", "target", "num_bfu",
+             "err", "clc", "vlc", "t_active", "t_pos", "t_len", "t_bfu",
+             "t_vlc")
+    want = [ins[k].data_ptr() for k in names]
+    nb, mode, wl = rate_control.rate_control_block(**ins)
+    ptrs = spy.calls[-1]
+    assert list(ptrs[:14]) == want
+    assert ptrs[16:19] == (wl.data_ptr(), nb.data_ptr(), mode.data_ptr())
+    assert ptrs[20] == 0                        # clc read as one table
+    assert mode.dtype == torch.bool and wl.shape == (37, 32)
+    wl_f = rate_control.bisect_block(**ins)
+    ptrs = spy.calls[-1]
+    assert list(ptrs[:14]) == want and ptrs[16] == wl_f.data_ptr()
+    torch.cuda.synchronize()
 
 
 def _at1_inputs(n, case):

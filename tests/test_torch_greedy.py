@@ -66,8 +66,11 @@ def test_greedy_matches_jax_scan(rows, L):
     assert_equal(acc_j, acc_t, "accept")
 
 
-def test_greedy_matches_pallas_interpret():
-    args = _greedy_inputs(9, 32)
+# the main path's candidate counts (EA groups of 32, 64 and 128 lines) at
+# row counts that are not a multiple of 32
+@pytest.mark.parametrize("rows,L", [(9, 32), (45, 64), (23, 128)])
+def test_greedy_matches_pallas_interpret(rows, L):
+    args = _greedy_inputs(rows, L)
     e2_p, acc_p = pallas_greedy(*map(jnp.asarray, args), interpret=True)
     e2_t, acc_t = greedy.greedy_scan(*map(t, args))
     assert_equal(e2_p, e2_t, "e2")
