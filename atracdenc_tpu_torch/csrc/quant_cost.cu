@@ -6,51 +6,66 @@
 // err = e1/e2 (original over quantised energy; NaN -> 0, inf -> FLT_MAX)
 // and the block's single-symbol VLC bit cost.
 //
-// Bound: device-memory bandwidth.  Each block is 512 bytes read once and
-// 64 bytes written; the arithmetic is ~8 x 4 rounds per value.  Design:
-// one warp per block, 4 consecutive values per lane (one 16-byte load, so
-// a warp reads its block in one coalesced 512-byte transaction); all 8
-// wordlens are evaluated from registers, so the [N, 32, 8, 128] lane
-// broadcast of the XLA form never exists.  Sums of m^2 and of VLC bits are
-// integer warp-shuffle sums (exact in any order).  Only e1, the f32 sum of
-// x^2, is summed in another order than the plain version: that is the one
-// tolerated difference.
+// Bound: by bytes on paper (of a frame's 16 KiB only the 4 KiB inside the
+// block lengths count; 2 KiB are written), but a block's work is so small
+// that instruction issue is what a kernel has to watch: one warp a block, a
+// shuffle reduction for each wordlen's sums and VLC lengths from
+// lane-divergent constant-memory reads cost about 900 warp-instructions a
+// block, 25 times the bytes' time on an H100.
+// Design (quant_block.cuh): a warp pass takes 128 values that count from
+// several blocks, so a frame is 9 passes of about 400 instructions; squares
+// and VLC lengths come as one word from a shared-memory table; the 8 packed
+// sums of a block share one transposing butterfly.  The three quarters of a
+// frame beyond the block lengths are never loaded.  A CTA of 8 warps builds
+// the tables once and walks (frame, pass) items with a grid-wide stride.
+// Only e1, the f32 sum of x^2, is summed in another order than the plain
+// version: that is the one tolerated difference.
 #include "quant_block.cuh"
 
 namespace {
 
-__global__ void quant_cost_plain_kernel(const float* __restrict__ x,
-                                        const unsigned char* __restrict__ mask,
-                                        float* __restrict__ err,
-                                        int* __restrict__ vlc,
-                                        long long n_blocks) {
-    const long long blk = (static_cast<long long>(blockIdx.x) * blockDim.x
-                           + threadIdx.x) >> 5;
-    const int lane = threadIdx.x & 31;
-    if (blk >= n_blocks) return;            // warp-uniform exit
-    const int bfu = static_cast<int>(blk % 32);
+constexpr int kThreads = 256;
 
-    const float4 v = reinterpret_cast<const float4*>(x + blk * 128)[lane];
-    const uchar4 m = reinterpret_cast<const uchar4*>(mask + bfu * 128)[lane];
-    const PlainCost c = plain_block_cost<false>(v, m, lane);
-    if (lane < 8) {
-        err[blk * 8 + lane] = c.err;
-        vlc[blk * 8 + lane] = c.vlc;
+__global__ void __launch_bounds__(kThreads)
+quant_cost_plain_kernel(const float* __restrict__ x,
+                        const unsigned char* __restrict__ mask,
+                        float* __restrict__ err, int* __restrict__ vlc,
+                        long long n_frames) {
+    __shared__ QuantTables tab;
+    load_tables(tab);
+    __syncthreads();
+    const int lane = threadIdx.x & 31;
+    const long long n_items = n_frames * kDensePasses;
+    const long long stride = static_cast<long long>(gridDim.x) * (kThreads / 32);
+    for (long long it = static_cast<long long>(blockIdx.x) * (kThreads / 32)
+                        + (threadIdx.x >> 5);
+         it < n_items; it += stride) {
+        const long long f = it / kDensePasses;
+        const int pass = static_cast<int>(it - f * kDensePasses);
+        frame_pass<false>(x + f * 4096, mask, pass, lane, tab,
+                          err + f * 256, vlc + f * 256);
     }
 }
 
 }  // namespace
 
-// x [n_blocks, 128] f32 (n_blocks = N * 32), mask [32, 128] u8,
-// err/vlc [n_blocks, 8].  Returns cudaGetLastError() of the launch.
+// x [n_frames, 32, 128] f32, mask [32, 128] u8, err/vlc [n_frames, 32, 8].
+// Returns cudaGetLastError() of the launch.
 extern "C" int atrac3_quant_cost_plain(const float* x, const unsigned char* mask,
-                                       float* err, int* vlc, long long n_blocks,
+                                       float* err, int* vlc, long long n_frames,
                                        void* stream) {
-    if (n_blocks <= 0) return 0;
-    const int threads = 256;                 // 8 blocks of 128 per CTA
-    const long long ctas = (n_blocks * 32 + threads - 1) / threads;
-    quant_cost_plain_kernel<<<static_cast<unsigned>(ctas), threads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        x, mask, err, vlc, n_blocks);
+    if (n_frames <= 0) return 0;
+    // CTAs the current card holds at once, asked at every launch (a few
+    // microseconds on the host): a process may use more than one card
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, quant_cost_plain_kernel, kThreads, 0);
+    const long long resident = sms * per_sm > 0 ? sms * per_sm : 1;
+    const long long want = (n_frames * kDensePasses + kThreads / 32 - 1) / (kThreads / 32);
+    const unsigned ctas = static_cast<unsigned>(want < resident ? want : resident);
+    quant_cost_plain_kernel<<<ctas, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        x, mask, err, vlc, n_frames);
     return static_cast<int>(cudaGetLastError());
 }

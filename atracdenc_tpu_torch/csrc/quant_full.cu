@@ -19,172 +19,284 @@
 // accept decisions, and with them vlc, are equal.  Only the plain lanes'
 // e1 (summed as A sums it) is taken in another order than torch.sum.
 //
-// Bound: device-memory bandwidth.  A channel-frame is 16 KiB read once and
-// 2 KiB written; the EA lanes re-read their block from L1 / L2.  What
-// limits this first design is latency: each EA lane is a sequential
-// accept recurrence of up to 128 steps.  Design: one CTA of 8 warps per
-// channel-frame.  Phase 1: each warp costs 4 blocks as kernel A does.
-// Phase 2: each warp takes EA lanes in turn (one lane = one BFU at one
-// wordlen); lane i of the warp holds elements i, i+32, ...; the candidate
-// order is a rank (count of smaller unique 64-bit keys: |delta| bits high,
-// index low, i.e. torch.sort(stable=True)); then every thread of the warp
-// runs the same recurrence over the ranked candidates from shared memory.
+// Bound: instruction issue, not bytes and not latency.  Of a channel-frame
+// 4 KiB count and 2 KiB are written, 0.06 ms for the main path's 32,768
+// frames on an H100, and the arithmetic is 0.1 ms at the f32 peak; the
+// kernel takes about 1.2 ms there (1.9 ms on frames whose every value is an
+// eligible candidate at wordlen 7), and that time does not
+// move with the CTAs an SM holds (2 to 16 warps a CTA, 4 to 12 CTAs an SM):
+// it is the count of instructions, the integer pipe's half rate included.
+// A rank of every candidate against every other (O(L^2)) and a whole warp
+// stepping through one lane's recurrence would cost five times as many, so
+// the design avoids both.  A CTA of 8 warps takes kFrames frames at a time,
+// with a grid-wide stride:
+//   1. Warps share out the frames' 13 EA blocks and the 9 plain passes of
+//      kernel A's device code.  An EA block is loaded and its e1 summed
+//      once for its 7 wordlens.  A candidate that is not eligible never
+//      changes the recurrence (its accept test needs the flag), so only the
+//      eligible ones, about an eighth of a block on the encoder's data, are
+//      kept: compacted by ballot into the warp's scratch and ranked there
+//      by their unique 64-bit keys (|delta| bits high, index below: the
+//      order of torch.sort(stable=True)), one FP64 compare a pair.  The
+//      rank costs n^2 / 32 compares a lane for n kept candidates, L^2 / 32
+//      only if all of a block is eligible.  Each candidate's mantissa and
+//      index go to the lane's column of a step-major table in shared
+//      memory.
+//   2. One thread per EA lane runs the accept recurrence, in kernel B's
+//      float order, 91 threads a frame side by side over their columns.
+//   3. Warps take the EA blocks again for the wl==1 pair codebook over the
+//      adjusted mantissas.
+// Two frames between barriers keep 6 of the 8 warps in step 2 and even out
+// step 1; more do not fit the 48 KiB of static shared memory.
+// An eligible candidate has t > 0, so its mantissa m is >= 0: a candidate
+// needs |t - (trunc(t) + 0.5)| < 0.25, and that distance is frac + 0.5 for
+// t < 0.  Its flip is m + 1 (up) or max(m - 1, 0) (down).
 // No library sort, no global scratch.
 #include "quant_block.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
+constexpr int kFrames = 2;                    // frames a CTA holds between barriers
 constexpr int kEaFirst = 19;                 // LOSY_NAQ_START + 1
-constexpr int kEaLanes = (32 - kEaFirst) * 7;
+constexpr int kEaBfus = 32 - kEaFirst;
+constexpr int kEaLanes = kEaBfus * 7;
+// lanes by block length: 7 BFUs of 32, 4 of 64, 2 of 128, 7 wordlens each
+constexpr int kLanes32 = 49, kLanes64 = 28, kLanes128 = 14;
+constexpr int kEntries = 32 * kLanes32 + 64 * kLanes64 + 128 * kLanes128;
+constexpr float kMagic = 12582912.0f;        // 1.5 * 2^23: (t + kMagic) - kMagic
+                                             // rounds |t| < 2^22 half-to-even
+constexpr int kMagicBits = 0x4B400000;
 
-struct EaScratch {                           // one warp's EA lane
-    unsigned long long key[128];             // candidates' sort keys
-    int q[128];                              // plain-rounded mantissas
-    unsigned char flags[128];                // bit 0: eligible, bit 1: t > 0
-    unsigned char order[128];                // position of rank k
-    unsigned char accept[128];               // wl == 1: flip accepted
+struct alignas(16) EaLane {                  // what the recurrence starts from
+    float e1, e2;
+    int n;                                   // eligible candidates
+    int up;
 };
+
+struct FrameShared {                         // one frame in flight
+    float err[32 * 8];
+    int vlc[32 * 8];
+    unsigned short ent[kEntries];            // sorted: index << 8 | mantissa
+    EaLane lanes[kEaLanes];
+    unsigned accept[kEaBfus][4];             // wl == 1: bit p, flip accepted
+};
+
+struct FullShared {
+    QuantTables tab;
+    unsigned long long keys[kWarps][128];    // a warp's compacted candidates
+    FrameShared fr[kFrames];
+};
+
+// The column of EA lane li in FullShared::ent: step k is at
+// ent[base + k * stride], so the threads of a warp read neighbouring
+// halfwords.
+__device__ __forceinline__ void ent_column(int li, int& base, int& stride) {
+    if (li < kLanes32) { base = li; stride = kLanes32; }
+    else if (li < kLanes32 + kLanes64) {
+        base = 32 * kLanes32 + li - kLanes32; stride = kLanes64;
+    } else {
+        base = 32 * kLanes32 + 64 * kLanes64 + li - kLanes32 - kLanes64;
+        stride = kLanes128;
+    }
+}
 
 __device__ __forceinline__ int flip(int m, bool up, bool tpos) {
     if (up) return m > 0 ? m + 1 : (m < 0 ? m - 1 : (tpos ? 1 : -1));
     return m > 0 ? m - 1 : (m < 0 ? m + 1 : m);
 }
 
-struct EaCost {
-    float err;       // e1/e2 after the pass (sanitised)
-    int vlc;         // w >= 2: VLC delta of the accepted flips;
-                     // w == 1: pair-codebook bits of the adjusted mantissas
-};
-
-// One EA lane, the block xb / mb (length L = 32 * J) at wordlen w; the
-// result is the same in every thread of the warp.
-__device__ EaCost ea_lane(const float* __restrict__ xb,
-                          const unsigned char* __restrict__ mb, int L, int w,
-                          int lane, EaScratch& s) {
-    const int J = L / 32;
-    const float mul = c_maxq[w];
-    const float inv2 = 1.0f / (mul * mul);
-
+// One warp, one EA block of L = 32 J values, its 7 wordlens in turn: lane i
+// holds elements i, i + 32, ...  Fills the lanes' EaLane records and their
+// columns of sorted eligible candidates.
+template <int J>
+__device__ __forceinline__ void ea_prepare(const float* __restrict__ xb,
+                                           const unsigned char* __restrict__ mb,
+                                           int bfu, int lane,
+                                           const QuantTables& tab, FrameShared& s,
+                                           unsigned long long* keys) {
+    float x[J];
     float e1 = 0.0f;
-    int m2 = 0, n_cand = 0;
+#pragma unroll
     for (int j = 0; j < J; ++j) {
         const int p = j * 32 + lane;
-        const float x = xb[p];
-        const bool ok = mb[p] != 0;
-        const float t = x * mul;
-        const int q = ok ? __float2int_rn(t) : 0;
-        const float x2 = ok ? x * x : 0.0f;
+        x[j] = mb[p] != 0 ? xb[p] : 0.0f;
+        const float x2 = x[j] * x[j];
         e1 = j == 0 ? x2 : e1 + x2;          // lane_sum: lane's terms in order
-        m2 += q * q;
-        const float ad = fabsf(t - (truncf(t) + 0.5f));
-        const bool cand = ok && ad < 0.25f;
-        n_cand += cand;
-        s.q[p] = q;
-        s.flags[p] = (t > 0.0f) ? 2 : 0;
-        s.key[p] = cand ? (static_cast<unsigned long long>(__float_as_uint(ad)) << 32) | p
-                        : ~0ull;
-        s.accept[p] = 0;
     }
     e1 = warp_sum(e1);                       // then the folds 16, 8, 4, 2, 1
-    n_cand = warp_sum(n_cand);
-    const float e2 = static_cast<float>(warp_sum(m2)) * inv2;
-    const bool up = e2 < e1, dn = e2 > e1;   // fixed before the pass
-    __syncwarp();
 
-    for (int j = 0; j < J; ++j) {
-        const int p = j * 32 + lane;
-        const unsigned long long key = s.key[p];
-        if (key == ~0ull) continue;
-        const float at = fabsf(xb[p] * mul);
-        const float am = static_cast<float>(abs(s.q[p]));
-        const bool elig = up ? (am < at && am < mul - 1.0f) : (dn && am > at);
-        s.flags[p] |= elig ? 1 : 0;
-        int rank = 0;
-        for (int i = 0; i < L; ++i) rank += s.key[i] < key;
-        s.order[rank] = static_cast<unsigned char>(p);
+    int base, stride;                        // wordlen 1's column; w's is w - 1 on
+    ent_column((bfu - kEaFirst) * 7, base, stride);
+#pragma unroll 1
+    for (int w = 1; w < 8; ++w) {
+        const float mul = tab.mul[w];
+        float t[J], r[J];
+        float m2 = 0.0f;                     // integers < 2^24: exact in f32
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+            t[j] = x[j] * mul;
+            r[j] = __fadd_rn(__fadd_rn(t[j], kMagic), -kMagic);   // rint(t)
+            m2 = __fmaf_rn(r[j], r[j], m2);
+        }
+        const float e2 = warp_sum(m2) * tab.inv2[w];
+        const bool up = e2 < e1, dn = e2 > e1;   // fixed before the pass
+
+        int n = 0;
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+            const float ad = fabsf(t[j] - (truncf(t[j]) + 0.5f));
+            const float am = fabsf(r[j]), at = fabsf(t[j]);
+            const bool elig = ad < 0.25f
+                && (up ? (am < at && am < mul - 1.0f) : (dn && am > at));
+            const unsigned bal = __ballot_sync(0xffffffffu, elig);
+            if (elig) {
+                const int q = __float_as_int(__fadd_rn(t[j], kMagic)) - kMagicBits;
+                const unsigned low = (static_cast<unsigned>(j * 32 + lane) << 8)
+                                     | static_cast<unsigned>(q < 255 ? q : 255);
+                keys[n + __popc(bal & ((1u << lane) - 1u))] =
+                    (static_cast<unsigned long long>(__float_as_uint(ad)) << 32) | low;
+            }
+            n += __popc(bal);
+        }
+        __syncwarp();
+
+        for (int i = lane; i < n; i += 32) {
+            // the keys are below 2^62, where the order of the integers is
+            // the order of the doubles with the same bits (none is a NaN):
+            // one compare on the FP64 pipe for two on the integer pipe
+            const unsigned long long key = keys[i];
+            const double dkey = __longlong_as_double(static_cast<long long>(key));
+            int rank = 0;
+            for (int k = 0; k < n; ++k)
+                rank += __longlong_as_double(static_cast<long long>(keys[k])) < dkey;
+            s.ent[base + w - 1 + rank * stride] = static_cast<unsigned short>(key);
+        }
+        if (lane == 0) s.lanes[(bfu - kEaFirst) * 7 + w - 1] = {e1, e2, n, up ? 1 : 0};
+        __syncwarp();                        // before the scratch is reused
     }
-    __syncwarp();
+}
 
-    // the accept recurrence, in kernel B's float order; every thread of the
-    // warp runs it on the same shared data, so the result is warp-uniform
-    const int sel = w - 1 > 6 ? 6 : w - 1;
-    float cur = e2;
+// One thread, one EA lane: the accept recurrence over its sorted eligible
+// candidates, in kernel B's float order.
+__device__ __forceinline__ void ea_recurrence(int li, const QuantTables& tab,
+                                              FrameShared& s) {
+    const int bfu = kEaFirst + li / 7;
+    const int w = 1 + li % 7;
+    const EaLane ln = s.lanes[li];
+    const float inv2 = tab.inv2[w];
+    const unsigned* row = tab.cost[w];
+    int base, stride;
+    ent_column(li, base, stride);
+    float cur = ln.e2;
     int dbits = 0;
-    for (int k = 0; k < n_cand; ++k) {
-        const int p = s.order[k];
-        const unsigned char fl = s.flags[p];
-        const int m = s.q[p];
-        const int mn = flip(m, up, (fl & 2) != 0);
+    // only the three adds and the compare of a step wait for the step
+    // before; the loads and the terms a, b and d do not
+#pragma unroll 4
+    for (int k = 0; k < ln.n; ++k) {
+        const unsigned e = s.ent[base + k * stride];
+        const int m = static_cast<int>(e & 255u);
+        const int mn = ln.up ? m + 1 : (m > 0 ? m - 1 : 0);
         const float a = static_cast<float>(m * m) * inv2;
         const float b = static_cast<float>(mn * mn) * inv2;
+        const int d = static_cast<int>(row[mn & 63] >> kBitsShift)
+                      - static_cast<int>(row[m & 63] >> kBitsShift);
         const float ex = (cur - a) + b;
-        if ((fl & 1) && fabsf(ex - e1) < fabsf(cur - e1)) {
-            cur = ex;
-            if (w >= 2) dbits += vlc_bits(mn, sel) - vlc_bits(m, sel);
-            else if (lane == 0) s.accept[p] = 1;
-        }
+        const bool take = fabsf(ex - ln.e1) < fabsf(cur - ln.e1);
+        cur = take ? ex : cur;
+        dbits += take ? d : 0;
+        if (take && w == 1)
+            s.accept[bfu - kEaFirst][e >> 13] |= 1u << ((e >> 8) & 31u);
     }
-    if (w >= 2) return {sanitize(e1 / cur), dbits};
-    __syncwarp();
-    // wl == 1: pair codebook over the adjusted mantissas (pairs at even
-    // positions < L; the block's positions >= L are masked off)
+    s.err[bfu * 8 + w] = sanitize(ln.e1 / cur);
+    if (w >= 2) s.vlc[bfu * 8 + w] += dbits;
+}
+
+// One warp, one EA block: the wl == 1 pair codebook over the adjusted
+// mantissas (pairs at even positions < L; positions >= L are masked off).
+__device__ __forceinline__ void ea_pairs(const float* __restrict__ xb,
+                                         const unsigned char* __restrict__ mb,
+                                         int bfu, int L, int lane,
+                                         const QuantTables& tab, FrameShared& s) {
+    const bool up = s.lanes[(bfu - kEaFirst) * 7].up != 0;
+    const unsigned* acc = s.accept[bfu - kEaFirst];
+    const float mul = tab.mul[1];
     int bits = 0;
     for (int i = lane; i < L / 2; i += 32) {
         const int p = 2 * i;
         if (!mb[p]) continue;
-        const int a = s.accept[p] ? flip(s.q[p], up, (s.flags[p] & 2) != 0) : s.q[p];
-        const int b = s.accept[p + 1] ? flip(s.q[p + 1], up, (s.flags[p + 1] & 2) != 0)
-                                      : s.q[p + 1];
-        bits += pair_bits(a, b);
+        int q[2];
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+            const float t = mb[p + d] ? xb[p + d] * mul : 0.0f;
+            q[d] = __float2int_rn(t);
+            if ((acc[(p + d) >> 5] >> ((p + d) & 31)) & 1u) q[d] = flip(q[d], up, t > 0.0f);
+        }
+        bits += pair_bits(tab, q[0], q[1]);
     }
-    return {sanitize(e1 / cur), warp_sum(bits)};
+    bits = warp_sum(bits);
+    if (lane == 0) s.vlc[bfu * 8 + 1] = bits;
 }
 
 __global__ void __launch_bounds__(kWarps * 32)
 quant_cost_full_kernel(const float* __restrict__ x,
                        const unsigned char* __restrict__ mask,
-                       float* __restrict__ err, int* __restrict__ vlc) {
-    __shared__ float s_err[32 * 8];
-    __shared__ int s_vlc[32 * 8];
-    __shared__ EaScratch s_ea[kWarps];
-
-    const long long f = blockIdx.x;
+                       float* __restrict__ err, int* __restrict__ vlc,
+                       long long n_frames) {
+    __shared__ FullShared s;
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
-    const float* xf = x + f * 32 * 128;
-
-    // phase 1: the plain lanes of every block; vlc[:, 1] takes the pair
-    // codebook of the plain wl==1 mantissas
-    for (int bfu = warp; bfu < 32; bfu += kWarps) {
-        const float4 v = reinterpret_cast<const float4*>(xf + bfu * 128)[lane];
-        const uchar4 m = reinterpret_cast<const uchar4*>(mask + bfu * 128)[lane];
-        const PlainCost c = plain_block_cost<true>(v, m, lane);
-        if (lane < 8) {
-            s_err[bfu * 8 + lane] = c.err;
-            s_vlc[bfu * 8 + lane] = lane == 1 ? c.pair : c.vlc;
-        }
-    }
+    load_tables(s.tab);
     __syncthreads();
+    constexpr int per_frame = kEaBfus + kDensePasses;
 
-    // phase 2: the EA lanes overwrite err[19:32, 1:8] and vlc[19:32, 1],
-    // and add their flips' bits to vlc[19:32, 2:8]
-    for (int li = warp; li < kEaLanes; li += kWarps) {
-        const int bfu = kEaFirst + li / 7;
-        const int w = 1 + li % 7;
-        const int L = bfu < 26 ? 32 : (bfu < 30 ? 64 : 128);
-        const EaCost c = ea_lane(xf + bfu * 128, mask + bfu * 128, L, w, lane,
-                                 s_ea[warp]);
-        if (lane == 0) {
-            s_err[bfu * 8 + w] = c.err;
-            s_vlc[bfu * 8 + w] = w >= 2 ? s_vlc[bfu * 8 + w] + c.vlc : c.vlc;
+    for (long long f0 = static_cast<long long>(blockIdx.x) * kFrames; f0 < n_frames;
+         f0 += static_cast<long long>(gridDim.x) * kFrames) {
+        const int nf = n_frames - f0 < kFrames ? static_cast<int>(n_frames - f0) : kFrames;
+        for (int i = threadIdx.x; i < nf * kEaBfus * 4; i += kWarps * 32)
+            (&s.fr[i / (kEaBfus * 4)].accept[0][0])[i % (kEaBfus * 4)] = 0;
+
+        // 1. the longest EA blocks first, then the plain passes; vlc[:, 1]
+        // of a plain pass is the pair codebook of the plain mantissas
+        for (int it = warp; it < nf * per_frame; it += kWarps) {
+            const int item = it / nf;
+            FrameShared& fr = s.fr[it % nf];
+            const float* xf = x + (f0 + it % nf) * 4096;
+            if (item >= kEaBfus) {
+                frame_pass<true>(xf, mask, item - kEaBfus, lane, s.tab,
+                                 fr.err, fr.vlc);
+                continue;
+            }
+            const int bfu = 31 - item;
+            const float* xb = xf + bfu * 128;
+            const unsigned char* mb = mask + bfu * 128;
+            // block_len(bfu) / 32 elements a lane (a switch on it measured 6% slower)
+            if (bfu >= 30) ea_prepare<4>(xb, mb, bfu, lane, s.tab, fr, s.keys[warp]);
+            else if (bfu >= 26) ea_prepare<2>(xb, mb, bfu, lane, s.tab, fr, s.keys[warp]);
+            else ea_prepare<1>(xb, mb, bfu, lane, s.tab, fr, s.keys[warp]);
         }
-        __syncwarp();                        // before the scratch is reused
-    }
-    __syncthreads();
+        __syncthreads();
 
-    err[f * 256 + threadIdx.x] = s_err[threadIdx.x];
-    vlc[f * 256 + threadIdx.x] = s_vlc[threadIdx.x];
+        // 2. the EA lanes overwrite err[19:32, 1:8], add their flips' bits
+        // to vlc[19:32, 2:8] and mark the accepted wl == 1 flips
+        for (int i = threadIdx.x; i < nf * kEaLanes; i += kWarps * 32)
+            ea_recurrence(i % kEaLanes, s.tab, s.fr[i / kEaLanes]);
+        __syncthreads();
+
+        // 3. vlc[19:32, 1]
+        for (int it = warp; it < nf * kEaBfus; it += kWarps) {
+            const int bfu = 31 - it / nf;
+            ea_pairs(x + (f0 + it % nf) * 4096 + bfu * 128, mask + bfu * 128, bfu,
+                     block_len(bfu), lane, s.tab, s.fr[it % nf]);
+        }
+        __syncthreads();
+
+        for (int i = threadIdx.x; i < nf * 256; i += kWarps * 32) {
+            err[f0 * 256 + i] = s.fr[i >> 8].err[i & 255];
+            vlc[f0 * 256 + i] = s.fr[i >> 8].vlc[i & 255];
+        }
+        __syncthreads();                     // before the next frames' writes
+    }
 }
 
 }  // namespace
@@ -195,7 +307,16 @@ extern "C" int atrac3_quant_cost_full(const float* x, const unsigned char* mask,
                                       float* err, int* vlc, long long n_frames,
                                       void* stream) {
     if (n_frames <= 0) return 0;
-    quant_cost_full_kernel<<<static_cast<unsigned>(n_frames), kWarps * 32, 0,
-                             static_cast<cudaStream_t>(stream)>>>(x, mask, err, vlc);
+    // CTAs the current card holds at once, asked at every launch
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, quant_cost_full_kernel, kWarps * 32, 0);
+    const long long resident = sms * per_sm > 0 ? sms * per_sm : 1;
+    const long long want = (n_frames + kFrames - 1) / kFrames;
+    const unsigned ctas = static_cast<unsigned>(want < resident ? want : resident);
+    quant_cost_full_kernel<<<ctas, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        x, mask, err, vlc, n_frames);
     return static_cast<int>(cudaGetLastError());
 }

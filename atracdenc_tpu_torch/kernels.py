@@ -30,7 +30,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # (x, mask, err, vlc, n_blocks, stream)
+    # (x, mask, err, vlc, n_frames, stream)
     "atrac3_quant_cost_plain": [_P, _P, _P, _P, _L, _P],
     # (x, mask, err, vlc, n_frames, stream)
     "atrac3_quant_cost_full": [_P, _P, _P, _P, _L, _P],

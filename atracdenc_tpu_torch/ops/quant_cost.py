@@ -118,9 +118,27 @@ def quant_cost_torch(scaled, valid_mask):
     return torch.stack(errs, dim=-1), torch.stack(vlcs, dim=-1)
 
 
+def _kernel_tensors(scaled, valid_mask):
+    """(x, mask, err, vlc) as kernels A and D take them.  A contiguous
+    ``scaled`` and a bool (or uint8) mask on its device are passed as they
+    are: a bool tensor is one byte of 0 or 1 an element, so it is viewed as
+    uint8, never cast."""
+    x = scaled.contiguous()
+    mask = valid_mask.to(x.device).contiguous()
+    mask = mask.view(torch.uint8) if mask.dtype == torch.bool \
+        else mask.to(torch.uint8)
+    shape = scaled.shape[:-1] + (MAX_WL,)
+    return (x, mask, torch.empty(shape, dtype=torch.float32, device=x.device),
+            torch.empty(shape, dtype=torch.int32, device=x.device))
+
+
 def quant_cost_plain(scaled, valid_mask):
     """scaled [..., 32, 128] f32, valid_mask [32, 128] bool ->
     (err [..., 32, 8] f32, vlc [..., 32, 8] i32).
+
+    ``valid_mask`` is the mask by block length (``tables.GATHER_MASK``), or
+    that mask with further values switched off: the kernel reads no mask
+    byte at or beyond a block's ``SPECS_PER_BLOCK``.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (or raises)."""
@@ -133,16 +151,11 @@ def quant_cost_plain(scaled, valid_mask):
                          f"{tuple(scaled.shape)} {scaled.dtype}")
     if tuple(valid_mask.shape) != (32, 128):
         raise ValueError("quant_cost_plain: valid_mask must be [32, 128]")
-    lead = scaled.shape[:-2]
-    x = scaled.contiguous()
-    mask = valid_mask.to(device=x.device, dtype=torch.uint8).contiguous()
-    n_blocks = x.numel() // 128
-    err = torch.empty(lead + (32, MAX_WL), dtype=torch.float32, device=x.device)
-    vlc = torch.empty(lead + (32, MAX_WL), dtype=torch.int32, device=x.device)
+    x, mask, err, vlc = _kernel_tensors(scaled, valid_mask)
     kernels.require_cuda("quant_cost_plain", x, mask, err, vlc)
     kernels.check(lib.atrac3_quant_cost_plain(
         x.data_ptr(), mask.data_ptr(), err.data_ptr(), vlc.data_ptr(),
-        n_blocks, kernels.stream_ptr(x)), "quant_cost_plain")
+        x.numel() // (32 * 128), kernels.stream_ptr(x)), "quant_cost_plain")
     launches += 1
     return err, vlc
 
@@ -213,6 +226,7 @@ def quant_cost_full_torch(scaled, valid_mask):
 def quant_cost_full(scaled, valid_mask):
     """scaled [..., 32, 128] f32, valid_mask [32, 128] bool ->
     (err [..., 32, 8] f32, vlc [..., 32, 8] i32): the complete memo.
+    ``valid_mask`` as for ``quant_cost_plain``.
 
     A CPU tensor takes the plain version; a CUDA tensor launches kernel D
     (or raises)."""
@@ -225,15 +239,10 @@ def quant_cost_full(scaled, valid_mask):
                          f"{tuple(scaled.shape)} {scaled.dtype}")
     if tuple(valid_mask.shape) != (32, 128):
         raise ValueError("quant_cost_full: valid_mask must be [32, 128]")
-    lead = scaled.shape[:-2]
-    x = scaled.contiguous()
-    mask = valid_mask.to(device=x.device, dtype=torch.uint8).contiguous()
-    n_frames = x.numel() // (32 * 128)
-    err = torch.empty(lead + (32, MAX_WL), dtype=torch.float32, device=x.device)
-    vlc = torch.empty(lead + (32, MAX_WL), dtype=torch.int32, device=x.device)
+    x, mask, err, vlc = _kernel_tensors(scaled, valid_mask)
     kernels.require_cuda("quant_cost_full", x, mask, err, vlc)
     kernels.check(lib.atrac3_quant_cost_full(
         x.data_ptr(), mask.data_ptr(), err.data_ptr(), vlc.data_ptr(),
-        n_frames, kernels.stream_ptr(x)), "quant_cost_full")
+        x.numel() // (32 * 128), kernels.stream_ptr(x)), "quant_cost_full")
     full_launches += 1
     return err, vlc

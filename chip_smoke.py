@@ -6,7 +6,8 @@ Phases (each asserts; any failure exits non-zero):
   1. device   — CUDA present; torch / CUDA versions, card name and power limit
   2. build    — nvcc builds csrc/*.cu (kernels A, B, C, D, E, F) from this
                 checkout, one nvcc per source, all at once; prints ptxas's
-                registers, shared memory, stack and spills of B, C and F
+                registers, shared memory, stack and spills of A, B, C, D
+                and F
   3. kernels  — each kernel against its plain PyTorch version on the inputs
                 its path gives it: A, B, C at the ATRAC3 main path's 64
                 streams x 2 ch x 256 frames (A vlc equal and err within 4
@@ -16,7 +17,9 @@ Phases (each asserts; any failure exits non-zero):
                 beside the A + B memo on the same input); F on C's inputs
                 (wl equal to its plain version and to C with auto=False);
                 E at the ATRAC1 bench leg's 8 streams x 2 ch x 512 frames
-                (bfu_idx / wl equal for auto and --bfuidxconst 4)
+                (bfu_idx / wl equal for auto and --bfuidxconst 4); prints
+                a SHA-256 of A's and of D's err and vlc, so that two builds
+                run on one card can be held bit against bit
   4. golden   — tests/golden encodes on CUDA against the reference frames:
                 ATRAC3 identity floors 0.99, 0.98, 0.85, with the A + B
                 memo and again with the fused memo (kernel D); ATRAC1 0.93
@@ -26,7 +29,8 @@ Phases (each asserts; any failure exits non-zero):
   6. ATRAC3 real size — the bench corpus (seed 42, 997 Hz + noise, 64 x 256
                 stereo frames) through ``encode_frames_bytes`` (encode +
                 device packer), with A, B, C's counters zeroed just before;
-                then encode + host ``frame.pack``: equal bytes, both rates
+                then encode + host ``frame.pack``: equal bytes, both rates,
+                and a SHA-256 of the frame bytes
   7. ATRAC1 real size — bench.py's AT1 leg (the corpus cut to 8 streams x
                 512 frames): encode + device packer in sound units/s, E's
                 counter zeroed just before; bytes equal the host packer's
@@ -35,9 +39,9 @@ Phases (each asserts; any failure exits non-zero):
   9. fused memo real size — phase 6's corpus through ``encode_frames_bytes``
                 with ``fused_memo=True``, every counter zeroed just before:
                 D, B (final mantissas) and C launch, A does not; stereo
-                frames/s, and the bytes' identity with phase 6's (>= 0.999:
-                the plain lanes' e1 is summed in another order, a float
-                knife edge)
+                frames/s, a SHA-256 of the frame bytes, and the bytes'
+                identity with phase 6's (>= 0.999: the plain lanes' e1 is
+                summed in another order, a float knife edge)
 The last two lines of stdout are the card's nvidia-smi name / power limit
 (preceded by the kernels JSON line) and {"ok": true, "device": {...}}.
 
@@ -48,9 +52,13 @@ JAX package), so its path is the one call of phase 3 on C's captured
 inputs, counted alone.  ``bound_ms`` is the larger of the bytes the
 function moves (each input read once, each output written once) over 3.35
 TB/s and its operations (estimated per element, see ``OPS``) over 67
-TFLOP/s, the H100 SXM's HBM and non-tensor f32 peaks.  ``library_ms`` is
-null: no single PyTorch call computes any of the six functions.
+TFLOP/s, the H100 SXM's HBM and non-tensor f32 peaks.  Of A's and D's
+input only the values that this run's mask keeps count, for bytes and for
+operations (a quarter of each frame: no output depends on the rest), with
+the mask once and the outputs.  ``library_ms`` is null: no single PyTorch
+call computes any of the six functions.
 """
+import hashlib
 import itertools
 import json
 import os
@@ -63,10 +71,11 @@ STREAMS, CHANNELS, NFRAMES = 64, 2, 256
 AT1_STREAMS, AT1_FRAMES = 8, 512          # bench.py:220, pcm[:8, :, :512 * 512]
 HBM_BPS, F32_OPS = 3.35e12, 67e12         # H100 SXM: HBM bytes/s, f32 ops/s
 # Operations each function needs, estimated per unit of its work:
-#   A  per value: 8 wordlens x (multiply, round, square, add, VLC index,
-#      lookup, add, mask) + the e1 square and add
-#   D  A's, plus per EA element and wordlen (13 BFUs x 7): quantise, delta,
-#      key, eligibility, rank (log2 L compares) and the 7-op recurrence step
+#   A  per value the mask keeps: 8 wordlens x (multiply, round, square, add,
+#      VLC index, lookup, add, mask) + the e1 square and add
+#   D  A's, plus per kept EA element and wordlen (BFUs 19..31 x 7):
+#      quantise, delta, key, eligibility, rank (log2 L compares) and the
+#      7-op recurrence step
 #   B  per candidate step: subtract, add, two differences, two abs, compare
 #   C/F per allocation evaluation: 32 BFUs x ~30 (allocation, discount,
 #      boost, cost sums); 12 evaluations per bisection round
@@ -98,6 +107,20 @@ def nbytes(*tensors):
     return sum(t[tuple(0 if st == 0 else slice(None) for st in t.stride())]
                .numel() * t.element_size() for t in tensors
                if isinstance(t, torch.Tensor))
+
+
+def digest(*arrays):
+    """SHA-256 over the bytes of tensors or numpy arrays, in order."""
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update((a if hasattr(a, "tobytes") else a.cpu().numpy()).tobytes())
+    return h.hexdigest()
+
+
+def kept_values(x, mask, first_bfu=0):
+    """Values of x [..., 32, 128] that mask [32, 128] keeps, from BFU
+    first_bfu on: the only ones an output of kernels A and D depends on."""
+    return x.numel() // 4096 * int(mask[first_bfu:].sum())
 
 
 def bound(n_bytes, n_ops):
@@ -165,7 +188,8 @@ def main():
     lib = kernels.library()
     log(f"[2 build] {os.path.relpath(path, ROOT)} built in {build_s:.1f} s")
     for fn, use in kernels.ptxas_usage(report).items():
-        if any(k in fn for k in ("greedy_scan", "rate_control", "bisect")):
+        if any(k in fn for k in ("quant_cost", "greedy_scan", "rate_control",
+                                 "bisect")):
             log(f"[2 build] ptxas {fn}: {use.get('registers')} registers, "
                 f"{use.get('smem', 0)} B shared memory, {use.get('stack')} B "
                 f"stack, {use.get('spill')} B spill stores")
@@ -212,10 +236,11 @@ def main():
     a_pms = cuda_ms(lambda: quant_cost.quant_cost_torch(*a_args), 5, 1)
     a_bound = row("quant_cost_plain", "quant_cost.cu", "pallas_quant.py:339",
                   float((err_k - err_p).abs().max()), a_ms, a_pms,
-                  nbytes(*a_args, err_k, vlc_k), a_args[0].numel() * OPS["A_value"])
+                  4 * kept_values(*a_args) + nbytes(a_args[1], err_k, vlc_k),
+                  kept_values(*a_args) * OPS["A_value"])
     log(f"[3 kernels] A quant_cost_plain {tuple(a_args[0].shape)}: vlc equal, "
         f"err <= {int(ulp.max())} ulp; kernel {a_ms:.3f} ms, plain {a_pms:.3f} ms, "
-        f"{a_bound}")
+        f"{a_bound}; sha256(err, vlc) {digest(err_k, vlc_k)}")
 
     (d_args, _), = calls["D"]
     err_k, vlc_k = quant_cost.quant_cost_full(*d_args)
@@ -232,15 +257,15 @@ def main():
     d_ms = cuda_ms(lambda: quant_cost.quant_cost_full(*d_args), 10, 2)
     d_pms = cuda_ms(lambda: quant_cost.quant_cost_full_torch(*d_args), 2, 1)
     ab_ms = cuda_ms(lambda: bitalloc.quant_tensors(*d_args, fused_memo=False), 3, 1)
-    n_frames = d_args[0].numel() // 4096
     d_bound = row("quant_cost_full", "quant_full.cu", "pallas_quant.py:289",
                   float((err_k - err_p).abs().max()), d_ms, d_pms,
-                  nbytes(*d_args, err_k, vlc_k),
-                  d_args[0].numel() * OPS["A_value"]
-                  + n_frames * 7 * (7 * 32 + 4 * 64 + 2 * 128) * OPS["D_ea_elem"])
+                  4 * kept_values(*d_args) + nbytes(d_args[1], err_k, vlc_k),
+                  kept_values(*d_args) * OPS["A_value"]
+                  + 7 * kept_values(*d_args, first_bfu=19) * OPS["D_ea_elem"])
     log(f"[3 kernels] D quant_cost_full: vlc equal; kernel {d_ms:.3f} ms, plain "
         f"{d_pms:.3f} ms, the A + B memo (quant_tensors(fused_memo=False)) "
-        f"{ab_ms:.3f} ms on the same input; {d_bound}")
+        f"{ab_ms:.3f} ms on the same input; {d_bound}; sha256(err, vlc) "
+        f"{digest(err_k, vlc_k)}")
     del err_k, vlc_k, err_p, vlc_p, bad, ulp
 
     b_calls = [a for a, _ in calls["B"]]
@@ -429,8 +454,8 @@ def main():
         f"({n_st / t_all_dev:.1f} with the bytes on the host); device pack "
         f"alone {t_pack * 1e3:.1f} ms; encode {t_enc:.3f} s = "
         f"{n_st / t_enc:.1f}; encode + frame.pack {t_all:.3f} s = "
-        f"{n_st / t_all:.1f} stereo frames/s; bytes equal | {smi} | "
-        f"launches {launches}")
+        f"{n_st / t_all:.1f} stereo frames/s; bytes equal, sha256 "
+        f"{digest(fr_dev)} | {smi} | launches {launches}")
 
     # --- 7. ATRAC1 real size: bench.py's AT1 leg; E's counter zeroed just
     # before and read just after
@@ -514,7 +539,8 @@ def main():
     log(f"[9 fused memo] {STREAMS} x {NFRAMES} stereo frames: encode + device "
         f"pack with kernel D {t_fused:.3f} s = {n_st / t_fused:.1f} stereo "
         f"frames/s (phase 6, A + B memo: {n_st / t_dev:.1f}); byte identity "
-        f"with phase 6's bytes {ident!r} (floor 0.999) | {smi} | launches {c9}")
+        f"with phase 6's bytes {ident!r} (floor 0.999), sha256 "
+        f"{digest(fr_fused)} | {smi} | launches {c9}")
     assert ident >= 0.999, ident
 
     print(json.dumps({"kernels": [dict(r, launches=launches[name])

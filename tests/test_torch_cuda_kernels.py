@@ -49,29 +49,107 @@ def _quant_inputs(n):
     return (np.clip(x, -0.99999, 0.99999) * T.GATHER_MASK).astype(np.float32)
 
 
-@pytest.mark.parametrize("n", [1, 3, 37, 1000])
-def test_quant_cost_kernel(dev, n):
-    x = torch.from_numpy(_quant_inputs(n)).to(dev)
-    mask = torch.as_tensor(T.GATHER_MASK, device=dev)
-    err_k, vlc_k = quant_cost.quant_cost_plain(x, mask)
-    err_p, vlc_p = quant_cost.quant_cost_torch(x, mask)
-    torch.cuda.synchronize()
-    assert torch.equal(vlc_k, vlc_p)
-    assert int(_ulp(err_k, err_p).max()) <= 4
+def _by_bfu(fn):
+    """[32, 128] f64 with block b's row made by fn(b, length)."""
+    out = np.zeros((32, 128))
+    for b in range(32):
+        ln = int(T.SPECS_PER_BLOCK[b])
+        out[b, :ln] = fn(b, ln)
+    return out
 
 
-def _check_quant_full(x, dev):
-    mask = torch.as_tensor(T.GATHER_MASK, device=dev)
-    err_k, vlc_k = quant_cost.quant_cost_full(x, mask)
-    err_p, vlc_p = quant_cost.quant_cost_full_torch(x, mask)
+def _quant_case(name):
+    """(x [n, 32, 128] f32, mask [32, 128] bool): inputs that the dense
+    passes, the packed sums, the compaction and the rank of kernels A and D
+    could get wrong."""
+    rng = np.random.default_rng(sum(name.encode()))
+    mask = T.GATHER_MASK.copy()
+    k31 = lambda ln: rng.integers(0, 30, ln)                 # noqa: E731
+    if name == "all_candidates":
+        # t = k + 0.3 at wordlen 7: every value rounds down and is an
+        # eligible candidate, the longest rank and recurrence there are
+        frames = [_by_bfu(lambda b, ln: (k31(ln) + 0.3) / 31.5)] * 2
+    elif name == "no_candidates":
+        # negative values are never candidates; integers sit at |delta| 0.5
+        frames = [_by_bfu(lambda b, ln: -rng.random(ln)),
+                  _by_bfu(lambda b, ln: k31(ln) / 31.5)]
+    elif name == "tied_deltas":
+        # a few distinct values a block: equal |delta| at many indices, so
+        # the order is the index order
+        frames = [_by_bfu(lambda b, ln: rng.choice(
+            [0.3 / 1.5, 1.3 / 2.5, 2.4 / 3.5, 9.3 / 31.5, 9.7 / 31.5], ln))
+            for _ in range(3)]
+    elif name == "up_and_down":
+        # blocks that round down (the pass moves up) beside blocks that
+        # round up (it moves down), in one frame
+        frames = [_by_bfu(lambda b, ln: (k31(ln) + (0.3 if b % 2 else 0.7))
+                          / 31.5) for _ in range(2)]
+    elif name == "zeros":
+        frames = [np.zeros((32, 128))] * 2
+    elif name == "nan_blocks":
+        f = _by_bfu(lambda b, ln: rng.uniform(-0.9, 0.9, ln))
+        f[[3, 12, 20, 27, 31]] = np.nan
+        f[5, 2] = np.nan
+        f[30, 77] = np.nan
+        frames = [f, _by_bfu(lambda b, ln: rng.uniform(-0.9, 0.9, ln))]
+    elif name == "garbage_behind_the_mask":
+        # inf and NaN at the positions the mask switches off
+        f = np.full((32, 128), np.inf)
+        f[::2] = np.nan
+        f = np.where(T.GATHER_MASK, _by_bfu(
+            lambda b, ln: rng.uniform(-0.9, 0.9, ln)), f)
+        frames = [f, -f]
+    elif name == "mantissas_at_31":
+        frames = [_by_bfu(lambda b, ln: rng.choice([-0.99999, 0.99999], ln)),
+                  _by_bfu(lambda b, ln: np.full(ln, 0.99999)),
+                  _by_bfu(lambda b, ln: np.full(ln, -0.99999))]
+    elif name == "holes_in_the_mask":
+        # a mask with gaps inside the blocks' lengths
+        mask &= rng.random((32, 128)) < 0.7
+        frames = [rng.uniform(-0.9, 0.9, (32, 128)) for _ in range(3)]
+    else:
+        raise KeyError(name)
+    return np.stack(frames).astype(np.float32), mask
+
+
+QUANT_CASES = ["all_candidates", "no_candidates", "tied_deltas", "up_and_down",
+               "zeros", "nan_blocks", "garbage_behind_the_mask",
+               "mantissas_at_31", "holes_in_the_mask"]
+
+
+def _check_quant(kernel, plain, x, mask, dev):
+    x = torch.from_numpy(x).to(dev)
+    mask = torch.as_tensor(mask, device=dev)
+    err_k, vlc_k = kernel(x, mask)
+    err_p, vlc_p = plain(x, mask)
     torch.cuda.synchronize()
     assert torch.equal(vlc_k, vlc_p), int((vlc_k != vlc_p).sum())
     assert int(_ulp(err_k, err_p).max()) <= 4
 
 
-@pytest.mark.parametrize("n", [1, 3, 37, 1000])
+# n = 1, and counts that are no multiple of the CTAs either kernel launches
+@pytest.mark.parametrize("n", [1, 3, 37, 1000, 4099])
+def test_quant_cost_kernel(dev, n):
+    _check_quant(quant_cost.quant_cost_plain, quant_cost.quant_cost_torch,
+                 _quant_inputs(n), T.GATHER_MASK, dev)
+
+
+@pytest.mark.parametrize("case", QUANT_CASES)
+def test_quant_cost_kernel_cases(dev, case):
+    _check_quant(quant_cost.quant_cost_plain, quant_cost.quant_cost_torch,
+                 *_quant_case(case), dev)
+
+
+@pytest.mark.parametrize("n", [1, 3, 37, 1000, 4099])
 def test_quant_cost_full_kernel(dev, n):
-    _check_quant_full(torch.from_numpy(_quant_inputs(n)).to(dev), dev)
+    _check_quant(quant_cost.quant_cost_full, quant_cost.quant_cost_full_torch,
+                 _quant_inputs(n), T.GATHER_MASK, dev)
+
+
+@pytest.mark.parametrize("case", QUANT_CASES)
+def test_quant_cost_full_kernel_cases(dev, case):
+    _check_quant(quant_cost.quant_cost_full, quant_cost.quant_cost_full_torch,
+                 *_quant_case(case), dev)
 
 
 def test_quant_cost_full_kernel_edges(dev):
@@ -84,7 +162,23 @@ def test_quant_cost_full_kernel_edges(dev):
     x[1] = rng.choice([-0.9999, 0.9999], (32, 128))
     x[2] = (np.round(rng.uniform(-31, 31, (32, 128))) + 0.25) / 31.5
     x = (np.clip(x, -0.9999, 0.9999) * T.GATHER_MASK).astype(np.float32)
-    _check_quant_full(torch.from_numpy(x).to(dev), dev)
+    _check_quant(quant_cost.quant_cost_full, quant_cost.quant_cost_full_torch,
+                 x, T.GATHER_MASK, dev)
+
+
+def test_quant_memo_kernels_agree(dev):
+    """Kernel D's memo equals the memo on kernels A and B bit for bit (one
+    e1 order, one device code for the plain lanes), on every case."""
+    from atracdenc_tpu_torch.models.atrac3 import bitalloc
+    for case in ["all_candidates", "tied_deltas", "up_and_down", "nan_blocks"]:
+        x, mask = _quant_case(case)
+        x = torch.from_numpy(x).to(dev)
+        mask = torch.as_tensor(mask, device=dev)
+        a = bitalloc.quant_tensors(x, mask, fused_memo=False)
+        d = bitalloc.quant_tensors(x, mask, fused_memo=True)
+        for k in ("err", "clc", "vlc"):
+            assert torch.equal(a[k].view(torch.int32), d[k].view(torch.int32)), \
+                (case, k)
 
 
 @pytest.mark.parametrize("rows,L", [(1, 1), (129, 7), (1000, 32), (4097, 128)])
@@ -241,11 +335,22 @@ class _Spy:
 
 
 def test_wrappers_make_no_layout_copy(dev, monkeypatch):
-    """Kernels B, C and F get the caller's tensors themselves (their
-    data_ptr reaches the launch) and write the returned tensors directly."""
+    """Kernels A, B, C, D and F get the caller's tensors themselves (their
+    data_ptr reaches the launch; the bool mask of A and D is viewed as
+    bytes, not cast) and write the returned tensors directly."""
     from atracdenc_tpu_torch import kernels
     spy = _Spy(kernels.library())
     monkeypatch.setattr(kernels, "library", lambda: spy)
+
+    x = torch.from_numpy(_quant_inputs(5)).to(dev).reshape(1, 5, 32, 128)
+    mask = torch.as_tensor(T.GATHER_MASK, device=dev)
+    assert mask.dtype == torch.bool
+    for fn in (quant_cost.quant_cost_plain, quant_cost.quant_cost_full):
+        err, vlc = fn(x, mask)
+        assert spy.calls[-1][:5] == (x.data_ptr(), mask.data_ptr(),
+                                     err.data_ptr(), vlc.data_ptr(), 5)
+        assert err.shape == vlc.shape == (1, 5, 32, 8)
+        assert err.dtype == torch.float32 and vlc.dtype == torch.int32
 
     args = _greedy_edge_inputs(300, 64, dev)
     e2_out, accept = greedy.greedy_scan(*args)
