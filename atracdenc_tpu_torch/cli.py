@@ -8,7 +8,8 @@ encode).
         [--nogaincontrol] [--notonal] [--bfuidxconst N]
         -i in.wav -o out.{oma,at3,wav,rm}
 
-Takes the options of ``atracdenc_tpu/cli.py`` for these codecs.  ATRAC3+,
+Takes the options of ``atracdenc_tpu/cli.py`` for these codecs
+(``--bfuidxfast`` is a deprecated no-op there and here).  ATRAC3+,
 decoding anything but AEA, ``--exact`` for ATRAC3 and ``--yaml-log`` are
 not ported yet and exit 1.  ``--device cpu`` runs the kernels' plain
 versions (for tests); the default is CUDA.  Decoding runs the
@@ -43,6 +44,9 @@ def build_parser():
     p.add_argument("--bitrate", type=int, default=0, help="kbit/s (ATRAC3)")
     p.add_argument("--container", choices=("aea", "oma", "riff", "rm", "raw"))
     p.add_argument("--bfuidxconst", type=int, default=0)
+    p.add_argument("--bfuidxfast", action="store_true",
+                   help="deprecated no-op (kept for reference CLI parity, "
+                        "main.cpp:565-567)")
     p.add_argument("--notransient", nargs="?", const="", metavar="mask")
     p.add_argument("--nostdout", action="store_true")
     p.add_argument("--notonal", action="store_true")
@@ -113,10 +117,7 @@ def decode_atrac1(args):
     from atracdenc_tpu_torch.models.atrac1 import frame as at1_frame
     from atracdenc_tpu_torch.models.atrac1.decoder import decode_track
 
-    try:
-        frames, channels, title, length = aea.read(args.infile)
-    except aea.AeaFormatError as err:
-        sys.exit(f"Encode/Decode error: {err}")
+    frames, channels, title, length = aea.read(args.infile)
     if not args.nostdout:
         print(f"Input file: {args.infile}\n Name: {title}\n Channels: {channels}")
     n = (frames.shape[0] // channels) * channels
@@ -160,12 +161,20 @@ def _dispatch(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.bfuidxfast:
+        print("--bfuidxfast option is deprecated and will be removed.")
     if bool(args.encode) == bool(args.decode):
         sys.exit("Select mode: encode or decode")
     try:
         _dispatch(args)
     except OSError as err:
+        # reference: "Aea IO fatal error" / typed IO exceptions
+        # (main.cpp:709-713)
         sys.exit(f"IO fatal error: {err}")
+    except Exception as err:  # noqa: BLE001 — the reference's main catches
+        # every std::exception (main.cpp:717-720): corrupt input fails with
+        # a message, not a traceback (SystemExit is no Exception: it passes)
+        sys.exit(f"Encode/Decode error: {str(err) or type(err).__name__}")
 
 
 if __name__ == "__main__":

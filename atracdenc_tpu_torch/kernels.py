@@ -46,8 +46,8 @@ _SIGNATURES = {
     "atrac3_bisect": [_P] * 17 + [_I, _I, _P],
     # (sfi, energy, short_flags, loud, ath, fix_long, fix_short, band, specs,
     #  amount, boost_bits, boost_pos, n_boost, wl_out, idx_out, n,
-    #  bfu_idx_const, stream)
-    "atrac1_allocate": [_P] * 12 + [_I, _P, _P, _I, _I, _P],
+    #  bfu_idx_const, flags_stride, loud_channels, loud_frames, stream)
+    "atrac1_allocate": [_P] * 12 + [_I, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -168,8 +168,9 @@ def stream_ptr(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda(name, *tensors):
-    """Device / contiguity / alignment checks shared by the wrappers."""
+def require_cuda(name, *tensors, align=16):
+    """Device / contiguity / alignment (``align`` bytes) checks shared by
+    the wrappers."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
@@ -177,5 +178,5 @@ def require_cuda(name, *tensors):
                              f"got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: tensor not 16-byte aligned")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: tensor not {align}-byte aligned")

@@ -6,8 +6,8 @@ Phases (each asserts; any failure exits non-zero):
   1. device   — CUDA present; torch / CUDA versions, card name and power limit
   2. build    — nvcc builds csrc/*.cu (kernels A, B, C, D, E, F) from this
                 checkout, one nvcc per source, all at once; prints ptxas's
-                registers, shared memory, stack and spills of A, B, C, D
-                and F
+                registers, shared memory, stack and spills of every kernel
+                (A to F)
   3. kernels  — each kernel against its plain PyTorch version on the inputs
                 its path gives it: A, B, C at the ATRAC3 main path's 64
                 streams x 2 ch x 256 frames (A vlc equal and err within 4
@@ -17,9 +17,11 @@ Phases (each asserts; any failure exits non-zero):
                 beside the A + B memo on the same input); F on C's inputs
                 (wl equal to its plain version and to C with auto=False);
                 E at the ATRAC1 bench leg's 8 streams x 2 ch x 512 frames
-                (bfu_idx / wl equal for auto and --bfuidxconst 4); prints
-                a SHA-256 of A's and of D's err and vlc, so that two builds
-                run on one card can be held bit against bit
+                (bfu_idx / wl equal for auto and --bfuidxconst 4; timed
+                beside the launch floor, a one-element add_); prints a
+                SHA-256 of A's and of D's err and vlc and of E's bfu_idx
+                and wl, so that two builds run on one card can be held bit
+                against bit
   4. golden   — tests/golden encodes on CUDA against the reference frames:
                 ATRAC3 identity floors 0.99, 0.98, 0.85, with the A + B
                 memo and again with the fused memo (kernel D); ATRAC1 0.93
@@ -33,7 +35,8 @@ Phases (each asserts; any failure exits non-zero):
                 and a SHA-256 of the frame bytes
   7. ATRAC1 real size — bench.py's AT1 leg (the corpus cut to 8 streams x
                 512 frames): encode + device packer in sound units/s, E's
-                counter zeroed just before; bytes equal the host packer's
+                counter zeroed just before; bytes equal the host packer's,
+                and their SHA-256
   8. CLI      — a 30 s stereo WAV through the port's cli.main: ATRAC3 to
                 .oma; ATRAC1 to .aea and -d back to WAV (RMS within 1 dB)
   9. fused memo real size — phase 6's corpus through ``encode_frames_bytes``
@@ -79,9 +82,11 @@ HBM_BPS, F32_OPS = 3.35e12, 67e12         # H100 SXM: HBM bytes/s, f32 ops/s
 #   B  per candidate step: subtract, add, two differences, two abs, compare
 #   C/F per allocation evaluation: 32 BFUs x ~30 (allocation, discount,
 #      boost, cost sums); 12 evaluations per bisection round
-#   E  per evaluation: 52 BFUs x ~10; ~16 evaluations per channel-frame
+#   E  per allocation evaluation: 52 BFUs x ~10; 12 evaluations per
+#      bisection round (fewer after an exact hit), 1 + (7 - bfu_idx) rounds
+#      a channel-frame in auto mode
 OPS = {"A_value": 66, "D_ea_elem": 20 + 7, "B_step": 7, "C_eval": 32 * 30,
-       "E_frame": 52 * 10 * 16}
+       "E_eval": 52 * 10}
 
 
 def log(*a):
@@ -189,7 +194,7 @@ def main():
     log(f"[2 build] {os.path.relpath(path, ROOT)} built in {build_s:.1f} s")
     for fn, use in kernels.ptxas_usage(report).items():
         if any(k in fn for k in ("quant_cost", "greedy_scan", "rate_control",
-                                 "bisect")):
+                                 "bisect", "at1_allocate")):
             log(f"[2 build] ptxas {fn}: {use.get('registers')} registers, "
                 f"{use.get('smem', 0)} B shared memory, {use.get('stack')} B "
                 f"stack, {use.get('spill')} B spill stores")
@@ -337,14 +342,21 @@ def main():
             f"kernel E (bfu_idx_const={const}) differs"
         e_err = max(e_err, float((wl_k - wl_p).abs().max()),
                     float((idx_k - idx_p).abs().max()))
+    assert e_kw["bfu_idx_const"] == 0, e_kw
+    idx_k, wl_k = at1_alloc.at1_allocate_block(*e_args, **e_kw)
     e_ms = cuda_ms(lambda: at1_alloc.at1_allocate_block(*e_args, **e_kw), 20, 3)
     e_pms = cuda_ms(lambda: at1_alloc.at1_allocate_torch(*e_args, **e_kw), 3, 1)
+    one = torch.zeros(1, device=dev)
+    floor_ms = cuda_ms(lambda: one.add_(1.0), 20, 3)
+    rounds = int((8 - idx_k.long()).sum())          # 1 + (7 - bfu_idx) a row
     e_bound = row("at1_allocate_block", "at1_alloc.cu", "pallas_alloc.py:362",
                   e_err, e_ms, e_pms, nbytes(*e_args, idx_k, wl_k),
-                  e_args[3].numel() * OPS["E_frame"])
+                  rounds * 12 * OPS["E_eval"])
     log(f"[3 kernels] E at1_allocate_block {tuple(e_args[0].shape)}: bfu_idx/wl "
-        f"equal (auto and --bfuidxconst 4); kernel {e_ms:.3f} ms, "
-        f"plain {e_pms:.3f} ms, {e_bound}")
+        f"equal (auto and --bfuidxconst 4); kernel {e_ms:.4f} ms, "
+        f"plain {e_pms:.3f} ms, launch floor (one-element add_) "
+        f"{floor_ms:.4f} ms, {e_bound} ({rounds} bisection rounds); "
+        f"sha256(bfu_idx, wl) {digest(idx_k, wl_k)}")
     del calls, b_calls, a_args, c_args, d_args, e_args, outk
     torch.cuda.empty_cache()
 
@@ -477,8 +489,8 @@ def main():
         "ATRAC1 device packer differs from frame.pack"
     log(f"[7 atrac1 real size] {AT1_STREAMS} x {CHANNELS} x {AT1_FRAMES} "
         f"sound units: encode + device pack {t1:.4f} s = {n_units / t1:.1f} "
-        f"units/s; bytes equal the host packer's | {smi} | launches "
-        f"{at1_alloc.launches}")
+        f"units/s; bytes equal the host packer's, sha256 {digest(units_host)} "
+        f"| {smi} | launches {at1_alloc.launches}")
 
     # --- 8. CLI on a 30 s WAV (chunked paths: > 1024 AT3 / 2048 AT1 frames)
     work = os.path.join(kernels.BUILD_DIR, "smoke")

@@ -11,6 +11,7 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from atracdenc_tpu.models.atrac1 import bitalloc as jba
 from atracdenc_tpu_torch.models.atrac1 import bitalloc, encoder
@@ -94,3 +95,55 @@ def test_tables_match_the_jax_package():
     assert bitalloc.BOOST_ENTRIES == jba._BOOST_ENTRIES
     assert (bitalloc.BISECT_STEPS, bitalloc.SHRINK_ROUNDS) == \
         (jba._BISECT_STEPS, jba._SHRINK_ROUNDS)
+
+
+def _layout(case):
+    """(sfi, energy, short_flags, loudness) [S=2, C=2, F=5, ...] CPU tensors
+    laid out as a caller hands them to kernel E, and the tensors that must
+    reach the kernel with no copy."""
+    sfi, energy, short, loud = (t(x) for x in _random_inputs(9, c=4, f=5))
+    sfi, energy, short = (x.reshape((2, 2, 5) + x.shape[2:])
+                          for x in (sfi, energy, short))
+    base = loud.reshape(2, 2, 5)[:, 0].contiguous()     # [S, F]
+    enc_loud = base[..., None, :].expand(2, 2, 5)   # encoder._encode_specs
+    if case == "encoder, auto windows":
+        return (sfi, energy, short, enc_loud), [sfi, energy, short, base]
+    if case == "encoder, fixed windows":
+        fixed = encoder._fixed_masks(5, (2, 2, 5), torch.device("cpu"))
+        return (sfi, energy, fixed, enc_loud), [sfi, energy, fixed, base]
+    if case == "contiguous loudness":
+        return (sfi, energy, short, loud.reshape(2, 2, 5)), [sfi, energy, short]
+    if case == "chunk slices and casts":
+        # a frame slice of longer masks (encoder._encode_window), int64 sfi
+        # and loudness transposed: each copied into the kernel's layout
+        wide = torch.cat([short, short[..., :1, :]], dim=-2)[..., :5, :]
+        return (sfi.long(), energy, wide,
+                loud.reshape(2, 5, 2).transpose(1, 2)), []
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("case", ["encoder, auto windows",
+                                  "encoder, fixed windows",
+                                  "contiguous loudness",
+                                  "chunk slices and casts"])
+def test_kernel_rows_read_the_callers_layouts(case):
+    """``at1_alloc.rows``, the layouts kernel E reads, emulated here as the
+    kernel indexes them: every row sees its own sfi, energy, short flags
+    and loudness, and the encoder's tensors pass with no copy."""
+    ins, in_place = _layout(case)
+    sfi, energy, flags, fstride, loud, c, f = at1_alloc.rows(*ins)
+    n = ins[3].numel()
+    r = np.arange(n)
+    assert sfi.dtype == torch.int32 and energy.dtype == torch.float32
+    assert all(x.is_contiguous() for x in (sfi, energy, flags, loud))
+    np.testing.assert_array_equal(sfi.numpy().reshape(n, 52),
+                                  ins[0].reshape(n, 52).numpy())
+    np.testing.assert_array_equal(energy.numpy().reshape(n, 52),
+                                  ins[1].reshape(n, 52).numpy())
+    got_flags = flags.reshape(-1).numpy()[(r * fstride)[:, None] + np.arange(3)]
+    np.testing.assert_array_equal(got_flags, ins[2].reshape(n, 3).numpy())
+    got_loud = loud.reshape(-1).numpy()[r // (c * f) * f + r % f]
+    np.testing.assert_array_equal(got_loud, ins[3].reshape(n).numpy())
+    passed = {x.data_ptr() for x in (sfi, energy, flags, loud)}
+    for x in in_place:
+        assert x.data_ptr() in passed

@@ -335,9 +335,10 @@ class _Spy:
 
 
 def test_wrappers_make_no_layout_copy(dev, monkeypatch):
-    """Kernels A, B, C, D and F get the caller's tensors themselves (their
-    data_ptr reaches the launch; the bool mask of A and D is viewed as
-    bytes, not cast) and write the returned tensors directly."""
+    """Kernels A to F get the caller's tensors themselves (their data_ptr
+    reaches the launch; the bool masks of A, D and E are read as bytes, not
+    cast; E reads the encoder's broadcast loudness and fixed-window flags
+    by stride) and write the returned tensors directly."""
     from atracdenc_tpu_torch import kernels
     spy = _Spy(kernels.library())
     monkeypatch.setattr(kernels, "library", lambda: spy)
@@ -373,30 +374,57 @@ def test_wrappers_make_no_layout_copy(dev, monkeypatch):
     wl_f = rate_control.bisect_block(**ins)
     ptrs = spy.calls[-1]
     assert list(ptrs[:14]) == want and ptrs[16] == wl_f.data_ptr()
+
+    for layout, flags_stride in (("encoder", 3), ("fixed windows", 0)):
+        sfi, energy, short, loud = _at1_inputs(37, "random", dev, layout)
+        assert short.dtype == torch.bool and loud.stride(1) == 0
+        idx, wl = at1_alloc.at1_allocate_block(sfi, energy, short, loud)
+        ptrs = spy.calls[-1]
+        assert ptrs[:4] == (sfi.data_ptr(), energy.data_ptr(),
+                            short.data_ptr(), loud.data_ptr())
+        assert ptrs[13:15] == (wl.data_ptr(), idx.data_ptr())
+        assert ptrs[15:20] == (42, 0, flags_stride, 2, 7)   # n, auto, C, F
+        assert wl.shape == (3, 2, 7, 52) and idx.shape == (3, 2, 7)
+        assert wl.dtype == idx.dtype == torch.int32
     torch.cuda.synchronize()
 
 
-def _at1_inputs(n, case):
+def _at1_inputs(n, case, dev="cpu", layout="rows"):
+    """sfi, energy, short_flags, loudness of about n channel-frames.
+
+    layout "rows": [n, ...] contiguous.  As the ATRAC1 encoder hands them,
+    [S, C, F, ...] with S = 3, C = 2: "encoder" gives loudness one [S, F]
+    row per stream broadcast over the channels (stride 0); "fixed windows"
+    also gives short_flags as ``encoder._fixed_masks``' broadcast [3]."""
+    lead = (n,) if layout == "rows" else (3, 2, -(-n // 6))
     rng = np.random.default_rng(n)
-    sfi = rng.integers(0, 64, (n, 52)).astype(np.int32)
-    energy = (10.0 ** rng.uniform(-9, 2, (n, 52))).astype(np.float32)
-    short = rng.integers(0, 2, (n, 3)) > 0
-    loud = (10.0 ** rng.uniform(-4, 0, n)).astype(np.float32)
+    sfi = rng.integers(0, 64, lead + (52,)).astype(np.int32)
+    energy = (10.0 ** rng.uniform(-9, 2, lead + (52,))).astype(np.float32)
+    short = rng.integers(0, 2, lead + (3,)) > 0
+    loud = (10.0 ** rng.uniform(-4, 0, lead)).astype(np.float32)
     if case == "silence":                 # every long-window BFU gated
         sfi[:] = 0
         energy[:] = 0.0
         short[:] = False
     elif case == "short":                 # all bands short: no gate
         short[:] = True
-    return [torch.from_numpy(a) for a in (sfi, energy, short, loud)]
+    ins = [torch.from_numpy(a).to(dev) for a in (sfi, energy, short, loud)]
+    if layout != "rows":
+        ins[3] = ins[3][:, 0].contiguous()[:, None, :].expand(lead)
+    if layout == "fixed windows":
+        from atracdenc_tpu_torch.models.atrac1 import encoder
+        mask = {"silence": 0, "short": 7}.get(case, n % 8)
+        ins[2] = encoder._fixed_masks(mask, lead, ins[2].device)
+    return ins
 
 
+@pytest.mark.parametrize("layout", ["rows", "encoder", "fixed windows"])
 @pytest.mark.parametrize("n,case", [(1, "random"), (257, "random"),
                                     (257, "silence"), (257, "short"),
                                     (8192, "random")])
 @pytest.mark.parametrize("const", range(9))
-def test_at1_allocate_kernel(dev, n, case, const):
-    ins = [x.to(dev) for x in _at1_inputs(n, case)]
+def test_at1_allocate_kernel(dev, n, case, const, layout):
+    ins = _at1_inputs(n, case, dev, layout)
     idx_k, wl_k = at1_alloc.at1_allocate_block(*ins, bfu_idx_const=const)
     idx_p, wl_p = at1_alloc.at1_allocate_torch(*ins, bfu_idx_const=const)
     torch.cuda.synchronize()
@@ -418,7 +446,7 @@ def test_wrappers_refuse_bad_shapes(dev):
         rate_control.rate_control_block(**ins)
     with pytest.raises(ValueError):
         rate_control.bisect_block(**ins)
-    sfi, energy, short, loud = [x.to(dev) for x in _at1_inputs(3, "random")]
+    sfi, energy, short, loud = _at1_inputs(3, "random", dev)
     with pytest.raises(ValueError):
         at1_alloc.at1_allocate_block(sfi, energy, short[:, :2], loud)
     with pytest.raises(ValueError):
