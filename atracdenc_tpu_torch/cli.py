@@ -1,19 +1,20 @@
-"""Command-line entry point of the PyTorch port (ATRAC1 encode / decode, ATRAC3
-encode).
+"""Command-line entry point of the PyTorch port (ATRAC1 and ATRAC3 encode
+and decode).
 
     python -m atracdenc_tpu_torch.cli -e atrac1 [--bfuidxconst N]
         [--notransient[=mask]] [--exact] -i in.wav -o out.{aea,raw}
-    python -m atracdenc_tpu_torch.cli -d -i in.aea -o out.wav
     python -m atracdenc_tpu_torch.cli -e atrac3 [--bitrate N]
-        [--nogaincontrol] [--notonal] [--bfuidxconst N]
-        -i in.wav -o out.{oma,at3,wav,rm}
+        [--nogaincontrol] [--notonal] [--bfuidxconst N] [--exact]
+        [--yaml-log log.yaml] -i in.wav -o out.{oma,at3,wav,rm}
+    python -m atracdenc_tpu_torch.cli -d -i in.{aea,oma,at3,rm} -o out.wav
 
 Takes the options of ``atracdenc_tpu/cli.py`` for these codecs
-(``--bfuidxfast`` is a deprecated no-op there and here).  ATRAC3+,
-decoding anything but AEA, ``--exact`` for ATRAC3 and ``--yaml-log`` are
-not ported yet and exit 1.  ``--device cpu`` runs the kernels' plain
-versions (for tests); the default is CUDA.  Decoding runs the
-exact-semantics decoder on the host, as the JAX CLI does.
+(``--bfuidxfast`` is a deprecated no-op there and here).  ATRAC3+ is not
+ported yet: encoding or decoding it exits 1, and its ``--advanced`` option
+is not taken.  ``--device cpu`` runs the kernels' plain versions (for
+tests); the default is CUDA.  ATRAC1 decodes with the exact-semantics
+decoder on the host, as the JAX CLI does; ATRAC3 decodes with the QA
+decoder, whose transforms run on ``--device``.
 """
 import argparse
 import os
@@ -38,7 +39,7 @@ def build_parser():
                    help="encode mode; codec: atrac1 (default), atrac3 or "
                         "atrac3_lp4 (atrac3plus is not ported yet)")
     p.add_argument("-d", "--decode", action="store_true",
-                   help="decode mode (AEA / ATRAC1)")
+                   help="decode mode (AEA: ATRAC1; OMA / RIFF / RM: ATRAC3)")
     p.add_argument("-i", "--in", dest="infile", required=True)
     p.add_argument("-o", "--out", dest="outfile", required=True)
     p.add_argument("--bitrate", type=int, default=0, help="kbit/s (ATRAC3)")
@@ -52,9 +53,11 @@ def build_parser():
     p.add_argument("--notonal", action="store_true")
     p.add_argument("--nogaincontrol", action="store_true")
     p.add_argument("--exact", action="store_true",
-                   help="ATRAC1 encode: the reference-float-semantics host "
-                        "path (byte-identical to the reference binary)")
-    p.add_argument("--yaml-log", dest="yaml_log", help="not ported yet")
+                   help="ATRAC1/ATRAC3 encode: the reference-float-semantics "
+                        "host path (byte-identical to the reference binary)")
+    p.add_argument("--yaml-log", dest="yaml_log",
+                   help="ATRAC3 encode: write the gain-control decisions of "
+                        "every frame to this YAML file")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda (default) or cpu (the kernels' plain versions)")
     return p
@@ -128,14 +131,51 @@ def decode_atrac1(args):
     audio.write(args.outfile, pcm, 44100)
 
 
+def decode_atrac3_family(args, container):
+    """Decode an OMA / RIFF / RealMedia ATRAC3 file to PCM (beyond the
+    reference, whose decode mode is ATRAC1-only)."""
+    from atracdenc_tpu_torch.containers import at3, oma, rm
+    from atracdenc_tpu_torch.io import audio
+
+    if container == "oma":
+        frames, info = oma.read(args.infile)
+        codec = ("atrac3" if info["codec"] == oma.CODEC_ATRAC3
+                 else "atrac3plus")
+    elif container == "riff":
+        frames, info = at3.read(args.infile)
+        codec = info["codec"]
+    else:
+        frames, info = rm.read(args.infile)
+        codec = "atrac3"
+    channels = info["channels"]
+    if not args.nostdout:
+        print(f"Input file: {args.infile}\n Codec: {codec}\n "
+              f"Channels: {channels}\n FrameSz: {info['frame_size']}")
+    if codec != "atrac3":
+        sys.exit("Decoding ATRAC3+ is not ported to atracdenc_tpu_torch "
+                 "yet; use atracdenc_tpu.cli")
+    from atracdenc_tpu_torch.models.atrac3.decoder import decode_track
+    pcm = decode_track(frames, channels=channels,
+                       js=info.get("joint_stereo", False), device=args.device)
+    total = info.get("total_samples", 0)
+    if total:
+        pcm = pcm[:, :total]
+    audio.write(args.outfile, pcm, 44100)
+
+
 def _dispatch(args):
     if args.decode:
+        # dispatch by content magic, as atracdenc_tpu/cli.py does
         with open(args.infile, "rb") as fp:
             magic = fp.read(4)
-        if magic[:3] in (b"ea3", b"EA3") or magic in (b"RIFF", b".RMF"):
-            sys.exit("Decoding ATRAC3 / ATRAC3+ is not ported to "
-                     "atracdenc_tpu_torch yet; use atracdenc_tpu.cli")
-        decode_atrac1(args)
+        if magic[:3] in (b"ea3", b"EA3"):
+            decode_atrac3_family(args, "oma")
+        elif magic == b"RIFF":
+            decode_atrac3_family(args, "riff")
+        elif magic == b".RMF":
+            decode_atrac3_family(args, "rm")
+        else:
+            decode_atrac1(args)
         return
     codec = args.encode
     if codec not in CODECS:
@@ -143,9 +183,6 @@ def _dispatch(args):
     if codec not in _CONTAINERS:
         sys.exit(f"{codec} is not ported to atracdenc_tpu_torch yet; "
                  "use atracdenc_tpu.cli")
-    if args.yaml_log or (args.exact and codec != "atrac1"):
-        sys.exit("--yaml-log and --exact for ATRAC3 are not ported to "
-                 "atracdenc_tpu_torch yet; use atracdenc_tpu.cli")
     ext = os.path.splitext(args.outfile)[1].lower()
     default = "aea" if codec == "atrac1" else "oma"
     container = args.container or _EXT_CONTAINER.get(ext, default)

@@ -361,13 +361,14 @@ def assemble_up_in(bands, ctx, next_head=None):
     return up_in.transpose(1, 2)                          # [C, F, 4, 512]
 
 
-def gain_control(bands, ctx=None, next_head=None):
+def gain_control(bands, ctx=None, next_head=None, debug=False):
     """Gain-curve construction for a whole track (or one exact chunk).
 
     bands [C, F, 4, 256]; ctx the carried context (init_ctx at track
     start); next_head [C, 4, 128] the lookahead (zeros at track end).
     Returns (levels [C, F, 4, 8], locs [C, F, 4, 8], npoints [C, F, 4],
-    ctx_out)."""
+    ctx_out); with debug=True also a dict of per-band intermediates for the
+    YAML log (the reference's --yaml-log stream, yaml_log.h:19-57)."""
     c, f, nb, _ = bands.shape
     dev = bands.device
     if ctx is None:
@@ -496,8 +497,15 @@ def gain_control(bands, ctx=None, next_head=None):
         "last_hpf": at_last(cur_hpf, ctx["last_hpf"]),
         "prev_tail": bands[:, -1, :, 128:],
     }
-    return (torch.where(slot_valid, levels, 0),
-            torch.where(slot_valid, locs, 0), npts, ctx_out)
+    out = (torch.where(slot_valid, levels, 0),
+           torch.where(slot_valid, locs, 0), npts, ctx_out)
+    if debug:
+        dbg = {"high_freq_ratio": hfr, "hpf_overlap_ratio": hpf_overlap,
+               "dynamic_min_score": dyn_min_score, "gain": gain,
+               "target": tgt, "prev_target": saved_last_target,
+               "max_gain": max_gain}
+        return out + (dbg,)
+    return out
 
 
 def safe_energy_scale(orig, mod):

@@ -1,12 +1,13 @@
-"""ATRAC3 windowed MDCT with gain modulation, batched over frames.
+"""ATRAC3 windowed MDCT / IMDCT with gain modulation, batched over frames.
 
-Port of the encoder half of ``atracdenc_tpu/models/atrac3/mdct.py``
+Port of ``atracdenc_tpu/models/atrac3/mdct.py``
 (reference src/atrac3denc.cpp:33-91 + gain_processor.h): the MDCT input is
 [stored previous half | windowed current half]; the stored half is the
 previous frame's current half, windowed and divided by that frame's gain
 divisor curve, and is divided again by the current frame's first gain
 level.  Divisor curves come from a float32 ramp table, so the reference's
-sequential ``level *= gainInc`` is reproduced exactly.
+sequential ``level *= gainInc`` is reproduced exactly.  ``imdct_frames``
+inverts the transform for the QA decoder.
 """
 import functools
 
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from atracdenc_tpu_torch.models.atrac3 import tables as T
-from atracdenc_tpu_torch.ops.mdct import mdct_matrix
+from atracdenc_tpu_torch.ops.mdct import imdct, mdct_matrix
 
 
 @functools.lru_cache(maxsize=None)
@@ -37,7 +38,8 @@ def _consts(dev):
     return {"ramp": torch.as_tensor(_ramp_table_np().reshape(256, T.LOC_SZ),
                                     device=dev),
             "level": torch.as_tensor(T.GAIN_LEVEL, device=dev),
-            "enc_win": torch.as_tensor(T.ENCODE_WINDOW, device=dev)}
+            "enc_win": torch.as_tensor(T.ENCODE_WINDOW, device=dev),
+            "dec_win": torch.as_tensor(T.DECODE_WINDOW, device=dev)}
 
 
 def gain_divisors(levels, locs, npoints):
@@ -111,3 +113,29 @@ def mdct_frames(bands, div=None, scale=None, prev_half=None):
                         spec[..., 2, :], torch.flip(spec[..., 3, :], [-1])],
                        dim=-2)
     return spec.reshape(bands.shape[:-2] + (1024,))
+
+
+def imdct_frames(specs, div=None, scale=None):
+    """Inverse MDCT with overlap-add and gain demodulation (QA decoder).
+
+    specs [..., F, 1024], div [..., F, 4, 256] the divisor curve of each
+    frame's own gain points, scale [..., F, 4] the first-level scale of each
+    frame's own curve.  Returns bands [..., F, 4, 256]; out[f] reconstructs
+    the band samples of input frame f-1 (the one-frame OLA latency).
+    Reference Demodulate (gain_processor.h:66-93):
+    ``out[p] = (head_f[p] * scale_f + tail_{f-1}[p]) * div_{f-1}[p]``."""
+    s = specs.reshape(specs.shape[:-1] + (4, 256))
+    s = torch.stack([s[..., 0, :], torch.flip(s[..., 1, :], [-1]),
+                     s[..., 2, :], torch.flip(s[..., 3, :], [-1])], dim=-2)
+    win = 2.0 * _consts(s.device)["dec_win"]
+    # TMIDCT<512>(512) is the direct basis: imdct with scale 1
+    inv = imdct(s, 1.0) * torch.cat([win, torch.flip(win, [0])])
+    head, tail = inv[..., :256], inv[..., 256:]
+    prev = torch.cat([torch.zeros_like(tail[..., :1, :, :]),
+                      tail[..., :-1, :, :]], dim=-3)
+    out = (head if scale is None else head * scale[..., None]) + prev
+    if div is not None:
+        div_prev = torch.cat([torch.ones_like(div[..., :1, :, :]),
+                              div[..., :-1, :, :]], dim=-3)
+        out = out * div_prev
+    return out

@@ -1,8 +1,9 @@
-"""MDCT as a matmul with the direct basis.
+"""MDCT / IMDCT as matmuls with the direct basis.
 
-Port of ``atracdenc_tpu/ops/mdct.py::mdct_matrix`` / ``mdct``:
+Port of ``atracdenc_tpu/ops/mdct.py``:
 ``TMDCT<N>(scale) == (scale / N) * direct_mdct`` with
-``direct_mdct[k] = sum_n x[n] cos(2 pi / N (n + 0.5 + N/4)(k + 0.5))``.
+``direct_mdct[k] = sum_n x[n] cos(2 pi / N (n + 0.5 + N/4)(k + 0.5))``,
+and ``TMIDCT<N>(2N) == 2 * direct_imdct``, the transpose of the same basis.
 """
 import functools
 
@@ -11,7 +12,7 @@ import torch
 
 from atracdenc_tpu_torch import runtime  # noqa: F401  (f32 policy)
 
-__all__ = ["mdct_matrix", "mdct"]
+__all__ = ["mdct_matrix", "mdct", "imdct"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -34,3 +35,10 @@ def mdct(x, scale: float = 1.0):
     """Forward MDCT over the last axis: [..., N] -> [..., N/2]."""
     basis = mdct_matrix(x.shape[-1], scale, x.dtype, x.device)
     return torch.matmul(x, basis.t())
+
+
+def imdct(spec, scale: float = 2.0):
+    """Inverse MDCT over the last axis: [..., N/2] -> [..., N].  The default
+    ``scale=2.0`` is the reference's ``TMIDCT<N>(2N)`` (atrac1denc.h:52-54)."""
+    basis = mdct_matrix(2 * spec.shape[-1], scale, spec.dtype, spec.device)
+    return torch.matmul(spec, basis)

@@ -26,7 +26,10 @@ Phases (each asserts; any failure exits non-zero):
                 ATRAC3 identity floors 0.99, 0.98, 0.85, with the A + B
                 memo and again with the fused memo (kernel D); ATRAC1 0.93
                 and 0.97; the ATRAC1 decoder within 2e-4 of the reference
-                decoder's PCM
+                decoder's PCM; the ATRAC3 QA decoder on ref_c.{oma,at3,rm}
+                and ref_js.oma within 1e-5 of itself on the CPU; the
+                quality-parity gate of tests/test_at3_decoder.py on CUDA
+                (PSNR of the port's frames > the reference frames' - 0.05 dB)
   5. rate     — bytes with kernel C == bytes with the tensor-op rate path
   6. ATRAC3 real size — the bench corpus (seed 42, 997 Hz + noise, 64 x 256
                 stereo frames) through ``encode_frames_bytes`` (encode +
@@ -38,6 +41,8 @@ Phases (each asserts; any failure exits non-zero):
                 counter zeroed just before; bytes equal the host packer's,
                 and their SHA-256
   8. CLI      — a 30 s stereo WAV through the port's cli.main: ATRAC3 to
+                .oma and -d back to WAV (RMS within 1 dB); ATRAC3 with
+                --yaml-log (one document per whole frame); omainfo on the
                 .oma; ATRAC1 to .aea and -d back to WAV (RMS within 1 dB)
   9. fused memo real size — phase 6's corpus through ``encode_frames_bytes``
                 with ``fused_memo=True``, every counter zeroed just before:
@@ -45,6 +50,14 @@ Phases (each asserts; any failure exits non-zero):
                 frames/s, a SHA-256 of the frame bytes, and the bytes'
                 identity with phase 6's (>= 0.999: the plain lanes' e1 is
                 summed in another order, a float knife edge)
+ 10. ATRAC3 decode real size — phase 6's device-packed bytes of 8 streams
+                (8 x 256 stereo frames of 384 B): host parse (unpack +
+                dequantize) and device decode (``decode_frames`` on
+                [16, 256, 1024]) timed apart, in stereo frames/s; output
+                finite, within +-1, 256 * 1024 - 1162 samples long; one
+                stream within 1e-5 of its CPU decode; a SHA-256 of the
+                int16-rounded PCM; one more decode under torch.profiler:
+                device busy ms, of which host <-> device copies
 The last two lines of stdout are the card's nvidia-smi name / power limit
 (preceded by the kernels JSON line) and {"ok": true, "device": {...}}.
 
@@ -61,7 +74,9 @@ operations (a quarter of each frame: no output depends on the rest), with
 the mask once and the outputs.  ``library_ms`` is null: no single PyTorch
 call computes any of the six functions.
 """
+import contextlib
 import hashlib
+import io
 import itertools
 import json
 import os
@@ -128,6 +143,13 @@ def kept_values(x, mask, first_bfu=0):
     return x.numel() // 4096 * int(mask[first_bfu:].sum())
 
 
+def psnr(x, y):
+    """PSNR of y against x in dB, as tests/test_at3_decoder.py takes it."""
+    import numpy as np
+    e = x - y
+    return 10 * np.log10((x ** 2).mean() / max((e ** 2).mean(), 1e-20))
+
+
 def bound(n_bytes, n_ops):
     """(bound_ms, bound_by): the least time for the bytes at the HBM rate
     or for the operations at the f32 rate, whichever is longer."""
@@ -153,17 +175,19 @@ def main():
     sys.path.insert(0, ROOT)
     import numpy as np
     from atracdenc_tpu_torch import cli, kernels, runtime
-    from atracdenc_tpu_torch.containers import aea, oma
+    from atracdenc_tpu_torch.containers import aea, at3, oma, rm
     from atracdenc_tpu_torch.io import audio, wav
     from atracdenc_tpu_torch.models.atrac1 import frame as at1_frame
     from atracdenc_tpu_torch.models.atrac3 import frame
     from atracdenc_tpu_torch.models.atrac1 import decoder as at1_decoder
     from atracdenc_tpu_torch.models.atrac1 import device_pack as at1_pack
     from atracdenc_tpu_torch.models.atrac1 import encoder as at1_encoder
-    from atracdenc_tpu_torch.models.atrac3 import bitalloc, device_pack, encoder
+    from atracdenc_tpu_torch.models.atrac3 import (bitalloc, decoder,
+                                                   device_pack, encoder)
+    from atracdenc_tpu_torch.tools import omainfo
     from atracdenc_tpu_torch.ops import (at1_alloc, greedy, quant_cost,
                                          rate_control)
-    from atracdenc_tpu_torch.trace_encode import capture, cuda_ms
+    from atracdenc_tpu_torch.trace_encode import capture, cuda_ms, device_kernels
     counters = {"A": (quant_cost, "launches"), "B": (greedy, "launches"),
                 "C": (rate_control, "launches"),
                 "D": (quant_cost, "full_launches"),
@@ -409,6 +433,33 @@ def main():
     log(f"[4 golden] at1_ref.aea decoded on CUDA: max |err| vs the reference "
         f"decoder {dec_err:.3g} (bound 2e-4)")
     assert dec_err < 2e-4, dec_err
+    # the ATRAC3 QA decoder on CUDA against itself on the CPU
+    for name, mod in (("ref_c.oma", oma), ("ref_c.at3", at3), ("ref_c.rm", rm),
+                      ("ref_js.oma", oma)):
+        frames_g, info = mod.read(os.path.join(gdir, name))
+        js = info.get("joint_stereo", False)
+        on_gpu, on_cpu = (decoder.decode_track(frames_g, info["channels"],
+                                               js=js, device=d)
+                          for d in ("cuda", "cpu"))
+        assert on_gpu.shape == on_cpu.shape and np.isfinite(on_gpu).all()
+        err3 = float(np.abs(on_gpu - on_cpu).max())
+        log(f"[4 golden] {name} (ATRAC3{', joint stereo' if js else ''}) "
+            f"decoded on CUDA: {on_gpu.shape}, max |CUDA - CPU| {err3!r} "
+            f"(bound 1e-5)")
+        assert err3 <= 1e-5, (name, err3)
+    # quality parity (tests/test_at3_decoder.py): the port's frames and the
+    # reference encoder's, both encoded and decoded on CUDA
+    ours3 = frame.pack(encoder.encode_track(g3["pcm_in"], device="cuda"), 384)
+    dec_ref3, dec_ours3 = (decoder.decode_track(f, 2, device="cuda")
+                           for f in (g3["ref_frames"], ours3))
+    n3 = min(dec_ref3.shape[1], g3["pcm_in"].shape[1]) - 2048
+    x3 = g3["pcm_in"][:, 1024:n3].astype(np.float64)
+    p_ref, p_ours = (float(psnr(x3, d[:, 1024:n3].astype(np.float64)))
+                     for d in (dec_ref3, dec_ours3))
+    log(f"[4 golden] at3_golden quality parity on CUDA: PSNR of the port's "
+        f"frames {p_ours!r} dB, of the reference frames {p_ref!r} dB "
+        f"(gate: > reference - 0.05 dB)")
+    assert p_ours > p_ref - 0.05, (p_ours, p_ref)
 
     # --- 5. both rate-control paths give the same bytes
     sub = x[:8]
@@ -514,6 +565,29 @@ def main():
     assert all(c1[k] > c0[k] for k in "ABC"), (c0, c1)
     log(f"[8 cli] 30 s WAV -> {os.path.relpath(oma_out, ROOT)}: "
         f"{frames_cli.shape[0]} frames of 384 bytes, launches {c0} -> {c1}")
+    wav3_back = os.path.join(work, "back30s_at3.wav")
+    cli.main(["-d", "-i", oma_out, "-o", wav3_back, "--nostdout"])
+    back3, rate = audio.read(wav3_back)
+    assert rate == 44100 and back3.shape == (2, want * 1024 - 1162), back3.shape
+    seg3 = slice(1024, back3.shape[1] - 1024)
+    gain3_db = 20 * np.log10(np.sqrt(np.mean(back3[:, seg3] ** 2))
+                             / np.sqrt(np.mean(pcm30[:, seg3] ** 2)))
+    assert abs(gain3_db) < 1.0, gain3_db
+    yaml_out = os.path.join(work, "gain30s.yaml")
+    cli.main(["-e", "atrac3", "-i", wav_in, "-o",
+              os.path.join(work, "yaml30s.oma"), "--nostdout",
+              "--yaml-log", yaml_out])
+    with open(yaml_out) as fp:
+        docs = fp.read().count("---\n")
+    assert docs == n // 1024, (docs, n // 1024)
+    info_out = io.StringIO()
+    with contextlib.redirect_stdout(info_out):
+        assert omainfo.main([oma_out]) == 0
+    info_line = info_out.getvalue().strip()
+    assert "ATRAC3" in info_line and "framesize: 384" in info_line, info_line
+    log(f"[8 cli] -d {os.path.basename(oma_out)} back to WAV: RMS "
+        f"{gain3_db:+.3f} dB against the input; --yaml-log: {docs} documents "
+        f"(one per whole frame); omainfo: {info_line.split(': ', 1)[1]}")
     aea_out = os.path.join(work, "out30s.aea")
     wav_back = os.path.join(work, "back30s.wav")
     cli.main(["-e", "atrac1", "-i", wav_in, "-o", aea_out, "--nostdout"])
@@ -554,6 +628,52 @@ def main():
         f"with phase 6's bytes {ident!r} (floor 0.999), sha256 "
         f"{digest(fr_fused)} | {smi} | launches {c9}")
     assert ident >= 0.999, ident
+
+    # --- 10. ATRAC3 decode at real size: phase 6's device-packed bytes
+    n10 = 8
+    t0 = time.perf_counter()
+    parsed = []
+    for s_ in range(n10):
+        parsed.append(decoder.dequantize(frame.unpack(fr_dev[s_], CHANNELS)))
+        if s_ == 3 and 2 * (time.perf_counter() - t0) > 60.0:
+            n10 = 4                       # 8 streams would parse for > 60 s
+            break
+    specs, gnp, glev, gloc = (np.concatenate(a) for a in zip(*parsed))
+    t_parse = time.perf_counter() - t0
+    decoder.decode_frames(specs, gnp, glev, gloc, device="cuda")      # warm
+    t0 = time.perf_counter()
+    pcm10 = decoder.decode_frames(specs, gnp, glev, gloc, device="cuda")
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    assert pcm10.shape == (n10 * CHANNELS, NFRAMES * 1024 - 1162), pcm10.shape
+    assert np.isfinite(pcm10).all() and np.abs(pcm10).max() <= 1.0
+    one_cpu = decoder.decode_frames(specs[:2], gnp[:2], glev[:2], gloc[:2],
+                                    device="cpu")
+    err10 = float(np.abs(pcm10[:2] - one_cpu).max())
+    assert err10 <= 1e-5, err10
+    pcm16 = np.clip(np.round(pcm10 * 32767.0), -32768, 32767).astype(np.int16)
+    n10_st = n10 * NFRAMES
+    # where the device decode's time goes: one more call under the profiler
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        decoder.decode_frames(specs, gnp, glev, gloc, device="cuda")
+    dev_ev = device_kernels(prof)
+    busy10 = sum(ms for _, ms, _ in dev_ev)
+    copy10 = sum(ms for k, ms, _ in dev_ev if "memcpy" in k.lower())
+    top10 = ", ".join(f"{k[:40]} {ms:.3f} ms x{c}" for k, ms, c in
+                      sorted(dev_ev, key=lambda r: -r[1])[:4])
+    log(f"[10 atrac3 decode] {n10} x {NFRAMES} stereo frames of 384 B"
+        f"{' (cut from 8 streams: the host parse of 8 would pass 60 s)' if n10 < 8 else ''}"
+        f": host parse (unpack + dequantize) {t_parse:.3f} s = "
+        f"{n10_st / t_parse:.1f} stereo frames/s; device decode "
+        f"(decode_frames {tuple(specs.shape)}) {t_dec:.4f} s = "
+        f"{n10_st / t_dec:.1f}; whole {n10_st / (t_parse + t_dec):.1f} stereo "
+        f"frames/s; stream 0 max |CUDA - CPU| {err10!r}; sha256(int16 PCM) "
+        f"{digest(pcm16)} | {smi}")
+    log(f"[10 atrac3 decode] decode_frames profiled: device busy "
+        f"{busy10:.3f} ms, of which copies {copy10:.3f} ms, in "
+        f"{sum(c for _, _, c in dev_ev)} device events; top: {top10}")
 
     print(json.dumps({"kernels": [dict(r, launches=launches[name])
                                   for name, r in rows.items()]}))

@@ -1,20 +1,61 @@
-"""The port's CLI where it once differed from the JAX CLI: an unexpected
-exception becomes ``Encode/Decode error: ...`` and a non-zero exit, and
-``--bfuidxfast`` is accepted as a deprecated no-op with the JAX CLI's
-notice.  Each case runs through both CLIs on the same file; encoding runs
-the port's CPU path."""
+"""The port's CLI against the JAX CLI on the same files.
+
+Where the port once differed: an unexpected exception becomes
+``Encode/Decode error: ...`` and a non-zero exit, and ``--bfuidxfast`` is
+accepted as a deprecated no-op with the JAX CLI's notice.  ATRAC3: ``-d``
+of OMA, RIFF and RealMedia files (joint stereo included) gives WAVs within
+1 LSB of 16 bits of the JAX CLI's (measured: equal) and the same header
+lines; ``--exact`` writes the same bytes; ``--yaml-log`` writes the same
+text, every number equal as printed.  An ATRAC3+ file exits with the
+port's message.  Encoding runs the port's CPU path."""
 import os
 
+import jax
 import numpy as np
 import pytest
 
 from atracdenc_tpu import cli as jax_cli
-from atracdenc_tpu.io import wav
+from atracdenc_tpu.io import audio as jaudio, wav
 from atracdenc_tpu_torch import cli as torch_cli
+from atracdenc_tpu_torch.containers import oma
+from atracdenc_tpu_torch.testing import cpu_setup, roll_jax_scans
 
+cpu_setup()
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 CLIS = {"jax": jax_cli, "torch": torch_cli}
 NOTICE = "--bfuidxfast option is deprecated and will be removed."
+LSB = 1.0 / 32768
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _rolled_jax_scans():
+    with pytest.MonkeyPatch.context() as mp:
+        roll_jax_scans(mp, jax.lax)
+        yield
+    jax.clear_caches()                   # no rolled trace outlives the file
+
+
+@pytest.fixture(scope="module")
+def at3_files(tmp_path_factory):
+    """An 8-frame stereo WAV (tone, noise and a loud burst, so that gain
+    points and tonal components occur) and the port's ATRAC3 encodes of
+    it in each container, and in joint stereo (atrac3_lp4)."""
+    d = tmp_path_factory.mktemp("at3cli")
+    k = np.arange(1024 * 8)
+    rng = np.random.default_rng(21)
+    x = 0.3 * np.sin(2 * np.pi * 997 * k / 44100)[None] * [[1.0], [0.7]]
+    x = x + 0.02 * rng.standard_normal((2, k.size))
+    x[:, 4000:4300] *= 3.0
+    src = str(d / "in.wav")
+    wav.write(src, np.clip(x, -1, 1).astype(np.float32), 44100)
+    files = {}
+    for codec, ext in (("atrac3", "oma"), ("atrac3", "at3"), ("atrac3", "rm"),
+                       ("atrac3_lp4", "oma")):
+        out = str(d / f"{codec}.{ext}")
+        torch_cli.main(["-e", codec, "-i", src, "-o", out, "--nostdout",
+                        "--device", "cpu"])
+        files[f"{codec}.{ext}"] = out
+    return src, files
 
 
 @pytest.mark.parametrize("name", sorted(CLIS))
@@ -55,3 +96,74 @@ def test_bfuidxfast_encodes_as_without_it(tmp_path, capsys):
         outs.append(out.read_bytes())
     assert capsys.readouterr().out == NOTICE + "\n"
     assert outs[0] == outs[1] and len(outs[0]) == 2048 + 12 * 212
+
+
+@pytest.mark.parametrize("name", ["atrac3.oma", "atrac3.at3", "atrac3.rm",
+                                  "atrac3_lp4.oma"])
+def test_atrac3_decode_matches_jax(at3_files, tmp_path, capsys, name):
+    _, files = at3_files
+    pcm, text = {}, {}
+    for cli in sorted(CLIS):
+        out = str(tmp_path / f"{cli}.wav")
+        args = ["-d", "-i", files[name], "-o", out]
+        CLIS[cli].main(args + (["--device", "cpu"] if cli == "torch" else []))
+        text[cli] = capsys.readouterr().out
+        pcm[cli], rate = jaudio.read(out)
+        assert rate == 44100
+    assert text["torch"] == text["jax"] and "Codec: atrac3" in text["torch"]
+    # the decoder drops its 1162-sample delay, which trimming to the
+    # containers' total_samples (RIFF, RM) does not reach
+    assert pcm["torch"].shape == pcm["jax"].shape == (2, 1024 * 8 - 1162)
+    assert np.abs(pcm["jax"]).max() > 0.1
+    assert np.abs(pcm["torch"] - pcm["jax"]).max() <= LSB
+
+
+@pytest.mark.parametrize("codec", ["atrac3", "atrac3_lp4"])
+def test_atrac3_exact_matches_jax(at3_files, tmp_path, codec):
+    src, _ = at3_files
+    outs = {}
+    for cli in sorted(CLIS):
+        out = tmp_path / f"{cli}.oma"
+        CLIS[cli].main(["-e", codec, "--exact", "-i", src, "-o", str(out),
+                        "--nostdout"])
+        outs[cli] = out.read_bytes()
+    assert len(outs["torch"]) > 8 * 192 and outs["torch"] == outs["jax"]
+
+
+def test_atrac3_yaml_log_matches_jax(at3_files, tmp_path):
+    src, _ = at3_files
+    logs = {}
+    for cli in sorted(CLIS):
+        log = tmp_path / f"{cli}.yaml"
+        CLIS[cli].main(["-e", "atrac3", "-i", src, "-o",
+                        str(tmp_path / f"{cli}.oma"), "--nostdout",
+                        "--yaml-log", str(log)]
+                       + (["--device", "cpu"] if cli == "torch" else []))
+        logs[cli] = log.read_text()
+    assert logs["torch"].count("---\n") == 8
+    assert "curve_final:\n          - {level:" in logs["torch"]
+    assert logs["torch"].splitlines() == logs["jax"].splitlines()
+
+
+def test_atrac3_yaml_log_whole_frames_only(at3_files, tmp_path):
+    """A track with a partial last frame: one document per whole frame (the
+    JAX CLI cannot reshape such a track and exits with an error)."""
+    src, _ = at3_files
+    pcm, _ = jaudio.read(src)
+    part = str(tmp_path / "part.wav")
+    wav.write(part, np.concatenate([pcm, pcm[:, :700]], axis=1), 44100)
+    log = tmp_path / "part.yaml"
+    torch_cli.main(["-e", "atrac3", "-i", part, "-o", str(tmp_path / "p.oma"),
+                    "--nostdout", "--device", "cpu", "--yaml-log", str(log)])
+    assert log.read_text().count("---\n") == 8
+
+
+def test_atrac3plus_decode_exits_with_a_message(tmp_path):
+    src = str(tmp_path / "plus.oma")
+    oma.write(src, np.zeros((2, 1488), np.uint8), oma.CODEC_ATRAC3PLUS, 1488)
+    with pytest.raises(SystemExit) as exc:
+        torch_cli.main(["-d", "-i", src, "-o", str(tmp_path / "out.wav"),
+                        "--nostdout", "--device", "cpu"])
+    assert exc.value.code == ("Decoding ATRAC3+ is not ported to "
+                              "atracdenc_tpu_torch yet; use atracdenc_tpu.cli")
+    assert not (tmp_path / "out.wav").exists()

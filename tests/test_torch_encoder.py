@@ -113,8 +113,14 @@ def test_cli_encodes_and_refuses_what_is_not_ported(tmp_path):
     cli.main(["-e", "atrac3", "-i", src, "-o", dst, "--nostdout", "--device", "cpu"])
     frames, info = oma.read(dst)
     assert frames.shape == (5, 384) and info["codec"] == oma.CODEC_ATRAC3
-    for extra in (["-e", "atrac1"], ["-e", "atrac3plus"], ["-e", "atrac3", "--exact"],
-                  ["-d"], ["-e", "atrac3", "--yaml-log", str(tmp_path / "g.yaml")]):
+    for extra in (["-e", "atrac1"], ["-e", "atrac3plus"], ["-d"]):
         with pytest.raises(SystemExit) as exc:
             cli.main(extra + ["-i", src, "-o", dst, "--device", "cpu"])
         assert exc.value.code not in (0, None), extra
+    # ATRAC3 --exact and --yaml-log are ported: they encode
+    log = tmp_path / "g.yaml"
+    for extra in (["--exact"], ["--yaml-log", str(log)]):
+        cli.main(["-e", "atrac3", "-i", src, "-o", dst, "--nostdout",
+                  "--device", "cpu"] + extra)
+        assert oma.read(dst)[0].shape == (5, 384), extra
+    assert log.read_text().count("---\n") == 5000 // 1024

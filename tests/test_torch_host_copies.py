@@ -2,7 +2,10 @@
 the originals on the same inputs: table arrays equal; the ATRAC3 and
 ATRAC1 frame packers, the bit packer (native and numpy forms), the
 containers and the audio writers byte-identical; the ATRAC1 exact encoder
-and decoder equal; the operator messages the same text."""
+and decoder and the ATRAC3 exact encoder equal; the operator messages the
+same text.  The copies that name their package (the ATRAC3 exact encoder's
+imports, the tools' imports and usage line) equal the originals' bytes
+once the port's package name reads as the original's."""
 import contextlib
 import io
 import os
@@ -16,6 +19,7 @@ from atracdenc_tpu.io import audio as jaudio, wav as jwav
 from atracdenc_tpu.models.atrac1 import exact_enc as jexact_enc
 from atracdenc_tpu.models.atrac1 import exact_synth as jexact_synth
 from atracdenc_tpu.models.atrac1 import frame as jframe1, tables as jtables1
+from atracdenc_tpu.models.atrac3 import exact_enc as jexact_enc3
 from atracdenc_tpu.models.atrac3 import frame as jframe3, tables as jtables3
 from atracdenc_tpu.utils import bitpack as jbitpack
 from atracdenc_tpu.utils import operator_log as jlog, progress as jprogress
@@ -23,13 +27,15 @@ from atracdenc_tpu_torch.containers import aea, at3, oma, raw, rm
 from atracdenc_tpu_torch.io import audio, wav
 from atracdenc_tpu_torch.models.atrac1 import exact_enc, exact_synth
 from atracdenc_tpu_torch.models.atrac1 import frame as frame1, tables as tables1
+from atracdenc_tpu_torch.models.atrac3 import exact_enc as exact_enc3
 from atracdenc_tpu_torch.models.atrac3 import frame as frame3, tables as tables3
 from atracdenc_tpu_torch.models.atrac3.encoder import encode_track
 from atracdenc_tpu_torch.testing import cpu_setup
 from atracdenc_tpu_torch.utils import bitpack, native, operator_log, progress
 
 cpu_setup()
-GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(ROOT, "tests", "golden")
 
 
 def _same(a, b, name):
@@ -180,3 +186,36 @@ def test_operator_messages():
         with contextlib.redirect_stdout(out):
             mod.print_progress(50)
         assert "50% done" in out.getvalue()
+
+
+@pytest.mark.parametrize("path", ["models/atrac3/yaml_log.py",
+                                  "models/atrac3/exact_gain.py",
+                                  "models/atrac3/exact_enc.py",
+                                  "tools/__init__.py", "tools/omainfo.py",
+                                  "tools/omacp.py"])
+def test_copied_source(path):
+    """Byte-equal to the original once ``atracdenc_tpu_torch`` reads
+    ``atracdenc_tpu``: only the import lines (and omainfo's usage line)
+    differ."""
+    port = _bytes(os.path.join(ROOT, "atracdenc_tpu_torch", path))
+    ref = _bytes(os.path.join(ROOT, "atracdenc_tpu", path))
+    assert port.replace(b"atracdenc_tpu_torch", b"atracdenc_tpu") == ref
+
+
+@pytest.mark.parametrize("npz,pcm_key,ref_key,frame_bytes,js", [
+    ("at3_default_golden.npz", "pcm_in", "ref_frames", 384, False),
+    ("at3_js_golden.npz", "pcm_in", "ref_frames", 192, True)],
+    ids=["default", "js"])
+def test_atrac3_exact_encoder(npz, pcm_key, ref_key, frame_bytes, js):
+    """tests/test_at3_exact.py's default and js cases: the port's planes
+    equal JAX's, and pack to the reference encoder's frames byte for
+    byte."""
+    g = np.load(os.path.join(GOLDEN, npz))
+    pcm, ref = g[pcm_key], g[ref_key]
+    opts = dict(frame_bytes=frame_bytes, no_tonal=False, no_gain=False, js=js)
+    planes = exact_enc3.encode_track_exact(pcm, **opts)
+    _same(jexact_enc3.encode_track_exact(pcm, **opts), planes,
+          "encode_track_exact")
+    ours = frame3.pack(planes, frame_bytes, js=js)
+    n = min(ours.shape[0], ref.shape[0])
+    assert n == 8 and np.array_equal(ours[:n], ref[:n])

@@ -39,6 +39,9 @@ pcm = torch.from_numpy((0.1 * rng.standard_normal((2, 2048))).astype(np.float32)
 planes = encode_frames(pcm, no_gain_control=False, no_tonal=False)
 out = frame.pack({k: to_numpy(v) for k, v in planes.items()}, 384)
 assert out.shape == (2, 384)
+from atracdenc_tpu_torch.models.atrac3 import decoder as at3_decoder
+pcm_back = at3_decoder.decode_track(out, 2, device="cpu")
+assert pcm_back.shape == (2, 2048 - 1162) and np.isfinite(pcm_back).all()
 from atracdenc_tpu_torch.models.atrac1 import decoder, device_pack, encoder as at1
 from atracdenc_tpu_torch.models.atrac1 import frame as at1_frame
 pcm1 = (0.1 * rng.standard_normal((2, 512 * 4))).astype(np.float32)
@@ -55,8 +58,8 @@ print("ok")
 
 
 def test_port_imports_and_encodes_without_jax():
-    """The whole port imports and encodes in a process that refuses both
-    ``jax`` and ``atracdenc_tpu``."""
+    """The whole port imports, encodes and decodes in a process that
+    refuses both ``jax`` and ``atracdenc_tpu``."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True,
                          text=True, env=env, cwd=ROOT, timeout=300)

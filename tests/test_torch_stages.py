@@ -164,6 +164,23 @@ def test_gain_control(chunked):
     assert_close(no_j, no_t, "next overlap")
 
 
+def test_gain_control_debug():
+    """debug=True returns the JAX package's seven YAML-log intermediates
+    within the float bound; the planes and the carry equal debug=False's."""
+    bands = _bands(8, f=6)
+    rj = jgain.gain_control(jnp.asarray(bands), debug=True)
+    rt = gain.gain_control(t(bands), debug=True)
+    plain = gain.gain_control(t(bands))
+    assert len(rt) == 5 and sorted(rt[4]) == sorted(rj[4]) and len(rj[4]) == 7
+    assert int(np.asarray(rj[2]).sum()) > 0, "case has no gain points"
+    for k in rj[4]:
+        assert_close(rj[4][k], rt[4][k], f"debug {k}")
+    for name, a, b in zip(("levels", "locs", "npoints"), plain[:3], rt[:3]):
+        assert_equal(a, b, name)
+    for k in plain[3]:
+        assert_equal(plain[3][k], rt[3][k], f"ctx {k}")
+
+
 def _tonal_specs(seed, c=2, f=3):
     """Spectra with a few strong lines so flat BFUs and tonal runs occur."""
     rng = np.random.default_rng(seed)
