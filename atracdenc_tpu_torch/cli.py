@@ -1,20 +1,22 @@
-"""Command-line entry point of the PyTorch port (ATRAC1 and ATRAC3 encode
-and decode).
+"""Command-line entry point of the PyTorch port (ATRAC1, ATRAC3 and ATRAC3+
+encode and decode).
 
     python -m atracdenc_tpu_torch.cli -e atrac1 [--bfuidxconst N]
         [--notransient[=mask]] [--exact] -i in.wav -o out.{aea,raw}
     python -m atracdenc_tpu_torch.cli -e atrac3 [--bitrate N]
         [--nogaincontrol] [--notonal] [--bfuidxconst N] [--exact]
         [--yaml-log log.yaml] -i in.wav -o out.{oma,at3,wav,rm}
+    python -m atracdenc_tpu_torch.cli -e atrac3plus
+        [--advanced ghadbg=MASK,ghawbrefine=MODE] -i in.wav
+        -o out.{oma,at3,wav,raw}
     python -m atracdenc_tpu_torch.cli -d -i in.{aea,oma,at3,rm} -o out.wav
 
-Takes the options of ``atracdenc_tpu/cli.py`` for these codecs
-(``--bfuidxfast`` is a deprecated no-op there and here).  ATRAC3+ is not
-ported yet: encoding or decoding it exits 1, and its ``--advanced`` option
-is not taken.  ``--device cpu`` runs the kernels' plain versions (for
-tests); the default is CUDA.  ATRAC1 decodes with the exact-semantics
-decoder on the host, as the JAX CLI does; ATRAC3 decodes with the QA
-decoder, whose transforms run on ``--device``.
+Takes the options of ``atracdenc_tpu/cli.py`` (``--bfuidxfast`` is a
+deprecated no-op there and here; ``--advanced`` sets ATRAC3+'s GHA options
+and is ignored by the other codecs).  ``--device cpu`` runs the kernels'
+plain versions (for tests); the default is CUDA.  ATRAC1 decodes with the
+exact-semantics decoder on the host, as the JAX CLI does; ATRAC3 and
+ATRAC3+ decode with the QA decoders, whose transforms run on ``--device``.
 """
 import argparse
 import os
@@ -23,10 +25,11 @@ import sys
 import numpy as np
 
 CODECS = ("atrac1", "atrac3", "atrac3_lp4", "atrac3plus")
-# codec -> allowed containers (reference main.cpp:168-194), ported codecs
+# codec -> allowed containers (reference main.cpp:168-194)
 _CONTAINERS = {"atrac1": {"aea", "raw"},
                "atrac3": {"oma", "riff", "rm", "raw"},
-               "atrac3_lp4": {"oma", "riff", "rm", "raw"}}
+               "atrac3_lp4": {"oma", "riff", "rm", "raw"},
+               "atrac3plus": {"oma", "riff", "raw"}}
 _EXT_CONTAINER = {".aea": "aea", ".oma": "oma", ".aa3": "oma", ".at3": "riff",
                   ".wav": "riff", ".rm": "rm"}
 
@@ -34,12 +37,13 @@ _EXT_CONTAINER = {".aea": "aea", ".oma": "oma", ".aa3": "oma", ".at3": "riff",
 def build_parser():
     p = argparse.ArgumentParser(
         prog="atracdenc-tpu-torch",
-        description="ATRAC1 / ATRAC3 codec on PyTorch / CUDA")
+        description="ATRAC1 / ATRAC3 / ATRAC3+ codec on PyTorch / CUDA")
     p.add_argument("-e", "--encode", nargs="?", const="atrac1", metavar="codec",
-                   help="encode mode; codec: atrac1 (default), atrac3 or "
-                        "atrac3_lp4 (atrac3plus is not ported yet)")
+                   help="encode mode; codec: atrac1 (default), atrac3, "
+                        "atrac3_lp4 or atrac3plus")
     p.add_argument("-d", "--decode", action="store_true",
-                   help="decode mode (AEA: ATRAC1; OMA / RIFF / RM: ATRAC3)")
+                   help="decode mode (AEA: ATRAC1; OMA / RIFF: ATRAC3 or "
+                        "ATRAC3+; RM: ATRAC3)")
     p.add_argument("-i", "--in", dest="infile", required=True)
     p.add_argument("-o", "--out", dest="outfile", required=True)
     p.add_argument("--bitrate", type=int, default=0, help="kbit/s (ATRAC3)")
@@ -52,6 +56,10 @@ def build_parser():
     p.add_argument("--nostdout", action="store_true")
     p.add_argument("--notonal", action="store_true")
     p.add_argument("--nogaincontrol", action="store_true")
+    p.add_argument("--advanced", default="",
+                   help="ATRAC3+ encode: ghadbg=MASK (0..15), "
+                        "ghawbrefine=MODE (0=subband, 1=raw); other codecs "
+                        "ignore it")
     p.add_argument("--exact", action="store_true",
                    help="ATRAC1/ATRAC3 encode: the reference-float-semantics "
                         "host path (byte-identical to the reference binary)")
@@ -132,8 +140,8 @@ def decode_atrac1(args):
 
 
 def decode_atrac3_family(args, container):
-    """Decode an OMA / RIFF / RealMedia ATRAC3 file to PCM (beyond the
-    reference, whose decode mode is ATRAC1-only)."""
+    """Decode an OMA / RIFF / RealMedia ATRAC3 or ATRAC3+ file to PCM
+    (beyond the reference, whose decode mode is ATRAC1-only)."""
     from atracdenc_tpu_torch.containers import at3, oma, rm
     from atracdenc_tpu_torch.io import audio
 
@@ -151,12 +159,14 @@ def decode_atrac3_family(args, container):
     if not args.nostdout:
         print(f"Input file: {args.infile}\n Codec: {codec}\n "
               f"Channels: {channels}\n FrameSz: {info['frame_size']}")
-    if codec != "atrac3":
-        sys.exit("Decoding ATRAC3+ is not ported to atracdenc_tpu_torch "
-                 "yet; use atracdenc_tpu.cli")
-    from atracdenc_tpu_torch.models.atrac3.decoder import decode_track
-    pcm = decode_track(frames, channels=channels,
-                       js=info.get("joint_stereo", False), device=args.device)
+    if codec == "atrac3":
+        from atracdenc_tpu_torch.models.atrac3.decoder import decode_track
+        pcm = decode_track(frames, channels=channels,
+                           js=info.get("joint_stereo", False),
+                           device=args.device)
+    else:
+        from atracdenc_tpu_torch.models.atrac3p.decoder import decode_track
+        pcm = decode_track(frames, channels, device=args.device)
     total = info.get("total_samples", 0)
     if total:
         pcm = pcm[:, :total]
@@ -180,9 +190,6 @@ def _dispatch(args):
     codec = args.encode
     if codec not in CODECS:
         sys.exit(f"Unknown codec: {codec}")
-    if codec not in _CONTAINERS:
-        sys.exit(f"{codec} is not ported to atracdenc_tpu_torch yet; "
-                 "use atracdenc_tpu.cli")
     ext = os.path.splitext(args.outfile)[1].lower()
     default = "aea" if codec == "atrac1" else "oma"
     container = args.container or _EXT_CONTAINER.get(ext, default)
@@ -191,6 +198,9 @@ def _dispatch(args):
     args.container = container
     if codec == "atrac1":
         encode_atrac1(args)
+    elif codec == "atrac3plus":
+        from atracdenc_tpu_torch.models.atrac3p.cli_glue import encode_file
+        encode_file(args)
     else:
         from atracdenc_tpu_torch.models.atrac3.cli_glue import encode_file
         encode_file(args, lp4=codec == "atrac3_lp4")

@@ -29,7 +29,9 @@ Phases (each asserts; any failure exits non-zero):
                 decoder's PCM; the ATRAC3 QA decoder on ref_c.{oma,at3,rm}
                 and ref_js.oma within 1e-5 of itself on the CPU; the
                 quality-parity gate of tests/test_at3_decoder.py on CUDA
-                (PSNR of the port's frames > the reference frames' - 0.05 dB)
+                (PSNR of the port's frames > the reference frames' - 0.05 dB);
+                ATRAC3+ at3p_golden (pcm_mixed, pcm_loud, GHA off) identity
+                floor 0.99 against the reference writer's frames
   5. rate     — bytes with kernel C == bytes with the tensor-op rate path
   6. ATRAC3 real size — the bench corpus (seed 42, 997 Hz + noise, 64 x 256
                 stereo frames) through ``encode_frames_bytes`` (encode +
@@ -43,7 +45,9 @@ Phases (each asserts; any failure exits non-zero):
   8. CLI      — a 30 s stereo WAV through the port's cli.main: ATRAC3 to
                 .oma and -d back to WAV (RMS within 1 dB); ATRAC3 with
                 --yaml-log (one document per whole frame); omainfo on the
-                .oma; ATRAC1 to .aea and -d back to WAV (RMS within 1 dB)
+                .oma; ATRAC1 to .aea and -d back to WAV (RMS within 1 dB);
+                ATRAC3+ to .oma and -d back to WAV (RMS within 1 dB), and
+                with --advanced ghadbg=15,ghawbrefine=1 to a valid .oma
   9. fused memo real size — phase 6's corpus through ``encode_frames_bytes``
                 with ``fused_memo=True``, every counter zeroed just before:
                 D, B (final mantissas) and C launch, A does not; stereo
@@ -58,6 +62,17 @@ Phases (each asserts; any failure exits non-zero):
                 stream within 1e-5 of its CPU decode; a SHA-256 of the
                 int16-rounded PCM; one more decode under torch.profiler:
                 device busy ms, of which host <-> device copies
+ 11. ATRAC3+ real size — bench.py's AT3P leg (bench.py:94-110,230): the
+                corpus cut to 8 streams x 128 stereo frames of 2048 B, full
+                GHA (mask 7), through ``encode_frames_bytes`` (encode +
+                device packer), warm, then timed three times; every kernel
+                counter zeroed just before and read just after (ATRAC3+ runs
+                none of A to F); the bytes equal encode_track + host
+                ``frame.pack`` stream by stream (cut to 4 streams when the
+                host part would pass 60 s), and their SHA-256; stream 0
+                decoded on CUDA within 1e-5 of its CPU decode, finite,
+                within +-1; one more encode under torch.profiler: device
+                busy ms, the top device kernels and the launch count
 The last two lines of stdout are the card's nvidia-smi name / power limit
 (preceded by the kernels JSON line) and {"ok": true, "device": {...}}.
 
@@ -184,6 +199,9 @@ def main():
     from atracdenc_tpu_torch.models.atrac1 import encoder as at1_encoder
     from atracdenc_tpu_torch.models.atrac3 import (bitalloc, decoder,
                                                    device_pack, encoder)
+    from atracdenc_tpu_torch.models.atrac3p import decoder as at3p_decoder
+    from atracdenc_tpu_torch.models.atrac3p import encoder as at3p_encoder
+    from atracdenc_tpu_torch.models.atrac3p import frame as at3p_frame
     from atracdenc_tpu_torch.tools import omainfo
     from atracdenc_tpu_torch.ops import (at1_alloc, greedy, quant_cost,
                                          rate_control)
@@ -419,6 +437,16 @@ def main():
         assert ident >= floor, name
     counts1 = counts()
     assert all(counts1[k] > counts0[k] for k in "ABCDE"), (counts0, counts1)
+    g3p = np.load(os.path.join(gdir, "at3p_golden.npz"))
+    for key in ("mixed", "loud"):
+        planes = at3p_encoder.encode_track(g3p[f"pcm_{key}"], use_gha=False,
+                                           device="cuda")
+        ours, ref = at3p_frame.pack(planes, 2), g3p[f"ref_{key}"]
+        n3p = min(len(ours), len(ref))
+        ident = float((ours[:n3p] == ref[:n3p]).mean())
+        log(f"[4 golden] at3p_golden pcm_{key} (ATRAC3+, GHA off): byte "
+            f"identity vs reference {ident!r} over {n3p} frames (floor 0.99)")
+        assert n3p == 8 and ident >= 0.99, key
     frames_ref, ch, _, _ = aea.read(os.path.join(gdir, "at1_ref.aea"))
     up = at1_frame.unpack(frames_ref)
     split = {k: torch.from_numpy(v.reshape((-1, ch) + v.shape[1:]).swapaxes(0, 1)
@@ -605,6 +633,42 @@ def main():
     log(f"[8 cli] 30 s WAV -> {os.path.relpath(aea_out, ROOT)}: "
         f"{units_cli.shape[0]} sound units, -d back to WAV: RMS "
         f"{gain_db:+.3f} dB against the input, E launches {c1['E']} -> {c2['E']}")
+    oma3p = os.path.join(work, "out30s_at3p.oma")
+    wav3p_back = os.path.join(work, "back30s_at3p.wav")
+    t0 = time.perf_counter()
+    cli.main(["-e", "atrac3plus", "-i", wav_in, "-o", oma3p, "--nostdout"])
+    t_enc3p = time.perf_counter() - t0
+    frames3p, info3p = oma.read(oma3p)
+    want3p = -(-n // 2048)
+    assert frames3p.shape == (want3p, 2048), (frames3p.shape, want3p)
+    assert info3p["codec"] == oma.CODEC_ATRAC3PLUS
+    t0 = time.perf_counter()
+    cli.main(["-d", "-i", oma3p, "-o", wav3p_back, "--nostdout"])
+    t_dec3p = time.perf_counter() - t0
+    back3p, rate = audio.read(wav3p_back)
+    assert rate == 44100 and back3p.shape == (2, want3p * 2048 - 368), \
+        back3p.shape
+    d3p = at3p_decoder.DELAY - 368          # the decoder drops the PQF delay
+    seg = slice(2048, n - 2 * d3p)
+    gain3p_db = 20 * np.log10(
+        np.sqrt(np.mean(back3p[:, d3p + seg.start: d3p + seg.stop] ** 2))
+        / np.sqrt(np.mean(pcm30[:, seg] ** 2)))
+    assert abs(gain3p_db) < 1.0, gain3p_db
+    oma3p_wb = os.path.join(work, "out30s_at3p_wideband.oma")
+    cli.main(["-e", "atrac3plus", "--advanced", "ghadbg=15,ghawbrefine=1",
+              "-i", wav_in, "-o", oma3p_wb, "--nostdout"])
+    frames_wb, info_wb = oma.read(oma3p_wb)
+    assert frames_wb.shape == (want3p, 2048)
+    assert info_wb["codec"] == oma.CODEC_ATRAC3PLUS
+    parsed_wb = [at3p_frame.unpack_frame(frames_wb[i], 2)
+                 for i in range(100, 110)]
+    n_tonal = sum(p_["tones"] is not None for p_ in parsed_wb)
+    assert n_tonal > 0 and all(p_["bits_used"] <= 2048 * 8 for p_ in parsed_wb)
+    log(f"[8 cli] 30 s WAV -> {os.path.relpath(oma3p, ROOT)} (ATRAC3+): "
+        f"{frames3p.shape[0]} frames of 2048 bytes in {t_enc3p:.2f} s; -d back "
+        f"to WAV in {t_dec3p:.2f} s: RMS {gain3p_db:+.3f} dB against the "
+        f"input; --advanced ghadbg=15,ghawbrefine=1: {frames_wb.shape[0]} "
+        f"frames, {n_tonal} of frames 100-109 parse with a tonal block")
 
     # --- 9. the fused memo at real size: phase 6's corpus and options with
     # kernel D computing the memo; the counters zeroed just before
@@ -674,6 +738,68 @@ def main():
     log(f"[10 atrac3 decode] decode_frames profiled: device busy "
         f"{busy10:.3f} ms, of which copies {copy10:.3f} ms, in "
         f"{sum(c for _, _, c in dev_ev)} device events; top: {top10}")
+
+    # --- 11. ATRAC3+ real size: bench.py's AT3P leg, GHA mask 7
+    t_phase11 = time.perf_counter()
+    s11, f11 = 8, 128
+    x11 = x[:s11, :, :2048 * f11].contiguous()
+    at3p_encoder.encode_frames_bytes(x11, CHANNELS)           # warm
+    torch.cuda.synchronize()
+    zero_counts()
+    t11 = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        b11 = at3p_encoder.encode_frames_bytes(x11, CHANNELS)
+        torch.cuda.synchronize()
+        t11.append(time.perf_counter() - t0)
+    c11 = counts()
+    assert not any(c11.values()), c11        # ATRAC3+ has no TPU kernel
+    fr11 = runtime.to_numpy(b11)
+    assert fr11.shape == (s11, f11, 2048), fr11.shape
+    t0 = time.perf_counter()
+    n_host = s11
+    for s_ in range(s11):
+        planes = at3p_encoder.encode_track(pcm[s_, :, :2048 * f11],
+                                           device="cuda")
+        assert np.array_equal(at3p_frame.pack(planes, CHANNELS), fr11[s_]), \
+            f"ATRAC3+ stream {s_}: device bytes differ from frame.pack"
+        if s_ == 1 and (time.perf_counter() - t0) * s11 / 2 > 30.0:
+            n_host = 4                 # 8 streams would take > 30 s here
+        if s_ + 1 == n_host:
+            break
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    specs11, tones11 = at3p_decoder.dequantize(fr11[0], CHANNELS)
+    t_parse11 = time.perf_counter() - t0
+    at3p_decoder.decode_frames(specs11, tones11, device="cuda")    # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pcm11 = at3p_decoder.decode_frames(specs11, tones11, device="cuda")
+    t_dec11 = time.perf_counter() - t0
+    pcm11_cpu = at3p_decoder.decode_frames(specs11, tones11, device="cpu")
+    assert pcm11.shape == (CHANNELS, 2048 * f11 - 368), pcm11.shape
+    assert np.isfinite(pcm11).all() and np.abs(pcm11).max() <= 1.0
+    err11 = float(np.abs(pcm11 - pcm11_cpu).max())
+    assert err11 <= 1e-5, err11
+    with torch.profiler.profile(activities=acts) as prof:
+        at3p_encoder.encode_frames_bytes(x11, CHANNELS)
+        torch.cuda.synchronize()
+    ev11 = device_kernels(prof)
+    busy11 = sum(ms for _, ms, _ in ev11)
+    top11 = ", ".join(f"{k[:40]} {ms:.3f} ms x{c}" for k, ms, c in
+                      sorted(ev11, key=lambda r: -r[1])[:5])
+    n11 = s11 * f11
+    log(f"[11 atrac3+ real size] {s11} x {f11} stereo frames of 2048 B, GHA "
+        f"mask 7: encode + device pack {', '.join(f'{v:.4f}' for v in t11)} s "
+        f"= {', '.join(f'{n11 / v:.1f}' for v in t11)} stereo frames/s; bytes "
+        f"equal encode_track + frame.pack on {n_host} streams"
+        f"{' (cut from 8: the host part would pass 60 s)' if n_host < s11 else ''}"
+        f" in {t_host:.1f} s; sha256 {digest(fr11)}; A-F launches {c11} | {smi}")
+    log(f"[11 atrac3+ real size] stream 0 decode: host parse {t_parse11:.2f} s, "
+        f"device decode_frames {t_dec11:.4f} s, max |CUDA - CPU| {err11!r}")
+    log(f"[11 atrac3+ real size] encode_frames_bytes profiled: device busy "
+        f"{busy11:.3f} ms in {sum(c for _, _, c in ev11)} device launches; "
+        f"top: {top11}; phase 11 took {time.perf_counter() - t_phase11:.1f} s")
 
     print(json.dumps({"kernels": [dict(r, launches=launches[name])
                                   for name, r in rows.items()]}))

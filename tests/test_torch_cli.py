@@ -6,8 +6,13 @@ accepted as a deprecated no-op with the JAX CLI's notice.  ATRAC3: ``-d``
 of OMA, RIFF and RealMedia files (joint stereo included) gives WAVs within
 1 LSB of 16 bits of the JAX CLI's (measured: equal) and the same header
 lines; ``--exact`` writes the same bytes; ``--yaml-log`` writes the same
-text, every number equal as printed.  An ATRAC3+ file exits with the
-port's message.  Encoding runs the port's CPU path."""
+text, every number equal as printed.  ATRAC3+: ``-e atrac3plus`` writes
+the same OMA and RIFF bytes (GHA on, and with ``--advanced
+ghadbg=15,ghawbrefine=1``, with the same stderr lines), ``-d`` of both
+gives WAVs within 1 LSB (measured: equal), out-of-range ``--advanced``
+values exit with the same messages, ``--advanced`` is accepted (and
+ignored) by ATRAC3, and a corrupt ATRAC3+ OMA fails with the same
+``Encode/Decode error``.  Encoding runs the port's CPU path."""
 import os
 
 import jax
@@ -159,11 +164,119 @@ def test_atrac3_yaml_log_whole_frames_only(at3_files, tmp_path):
 
 
 def test_atrac3plus_decode_exits_with_a_message(tmp_path):
+    """A corrupt ATRAC3+ OMA (zero frames: no valid start bit) fails in the
+    frame parser with the same message from both CLIs, and writes no WAV."""
     src = str(tmp_path / "plus.oma")
     oma.write(src, np.zeros((2, 1488), np.uint8), oma.CODEC_ATRAC3PLUS, 1488)
-    with pytest.raises(SystemExit) as exc:
-        torch_cli.main(["-d", "-i", src, "-o", str(tmp_path / "out.wav"),
-                        "--nostdout", "--device", "cpu"])
-    assert exc.value.code == ("Decoding ATRAC3+ is not ported to "
-                              "atracdenc_tpu_torch yet; use atracdenc_tpu.cli")
-    assert not (tmp_path / "out.wav").exists()
+    for cli in sorted(CLIS):
+        with pytest.raises(SystemExit) as exc:
+            CLIS[cli].main(["-d", "-i", src, "-o", str(tmp_path / "out.wav"),
+                            "--nostdout"]
+                           + (["--device", "cpu"] if cli == "torch" else []))
+        assert exc.value.code == "Encode/Decode error: AssertionError", cli
+        assert not (tmp_path / "out.wav").exists()
+
+
+def _at3p_wav(path, frames=4):
+    n = np.arange(2048 * frames)
+    x = (0.5 * np.sin(2 * np.pi * 689.0625 * n / 44100)
+         + 0.2 * np.sin(2 * np.pi * 3000.5 * n / 44100))
+    x[: n.size // 2] *= 0.05
+    x = x + 0.01 * np.random.default_rng(3).standard_normal(n.size)
+    wav.write(path, np.clip(np.stack([x, 0.8 * x]), -1, 1).astype(np.float32),
+              44100)
+
+
+@pytest.fixture(scope="module")
+def at3p_files(tmp_path_factory):
+    """A 4-frame stereo WAV (two tones with an onset) and each CLI's
+    ATRAC3+ encodes of it as OMA and RIFF."""
+    d = tmp_path_factory.mktemp("at3pcli")
+    src = str(d / "in.wav")
+    _at3p_wav(src)
+    files = {}
+    for cli in sorted(CLIS):
+        for ext in ("oma", "at3"):
+            out = str(d / f"{cli}.{ext}")
+            CLIS[cli].main(["-e", "atrac3plus", "-i", src, "-o", out,
+                            "--nostdout"]
+                           + (["--device", "cpu"] if cli == "torch" else []))
+            files[cli, ext] = out
+    return src, files
+
+
+@pytest.mark.parametrize("ext", ["oma", "at3"])
+def test_atrac3plus_encode_matches_jax(at3p_files, ext):
+    _, files = at3p_files
+    with open(files["jax", ext], "rb") as a, open(files["torch", ext], "rb") as b:
+        ref, got = a.read(), b.read()
+    assert len(got) > 4 * 2048 and got == ref
+
+
+@pytest.mark.parametrize("ext", ["oma", "at3"])
+def test_atrac3plus_decode_matches_jax(at3p_files, tmp_path, capsys, ext):
+    _, files = at3p_files
+    pcm, text = {}, {}
+    for cli in sorted(CLIS):
+        out = str(tmp_path / f"{cli}.wav")
+        CLIS[cli].main(["-d", "-i", files["torch", ext], "-o", out]
+                       + (["--device", "cpu"] if cli == "torch" else []))
+        text[cli] = capsys.readouterr().out
+        pcm[cli], rate = jaudio.read(out)
+        assert rate == 44100
+    assert text["torch"] == text["jax"] and "Codec: atrac3plus" in text["torch"]
+    assert pcm["torch"].shape == pcm["jax"].shape
+    assert np.abs(pcm["jax"]).max() > 0.01
+    assert np.abs(pcm["torch"] - pcm["jax"]).max() <= LSB
+
+
+def test_atrac3plus_advanced_wideband_matches_jax(at3p_files, tmp_path, capsys):
+    src, _ = at3p_files
+    outs, errs = {}, {}
+    for cli in sorted(CLIS):
+        out = tmp_path / f"{cli}.oma"
+        CLIS[cli].main(["-e", "atrac3plus", "--advanced",
+                        "ghadbg=15,ghawbrefine=1", "-i", src, "-o", str(out),
+                        "--nostdout"]
+                       + (["--device", "cpu"] if cli == "torch" else []))
+        outs[cli], errs[cli] = out.read_bytes(), capsys.readouterr().err
+    assert outs["torch"] == outs["jax"]
+    assert errs["torch"] == errs["jax"] == (
+        "GHA_PASS_INPUT\nGHA_WRITE_TONAL\nGHA_WRITE_RESIUDAL\nGHA_WIDEBAND\n"
+        "GHA_WIDEBAND_REFINE=raw\n")
+
+
+@pytest.mark.parametrize("advanced,message", [
+    ("ghadbg=16", "invalud value of GHA processing mask"),
+    ("ghawbrefine=2", "invalid ghawbrefine value (expected 0=subband or 1=raw)")])
+def test_atrac3plus_advanced_out_of_range(at3p_files, tmp_path, capsys,
+                                          advanced, message):
+    src, _ = at3p_files
+    seen = {}
+    for cli in sorted(CLIS):
+        out = tmp_path / f"{cli}.oma"
+        with pytest.raises(SystemExit) as exc:
+            CLIS[cli].main(["-e", "atrac3plus", "--advanced", advanced, "-i",
+                            src, "-o", str(out)]
+                           + (["--device", "cpu"] if cli == "torch" else []))
+        seen[cli] = (exc.value.code, capsys.readouterr())
+        assert not out.exists()
+    assert seen["torch"] == seen["jax"] and seen["torch"][0] == message
+
+
+def test_advanced_is_ignored_by_atrac3(at3_files, tmp_path):
+    """Both CLIs take --advanced with -e atrac3 and write what they write
+    without it (JAX: the host --exact path, no compile; the port: its
+    default device path too)."""
+    src, _ = at3_files
+    outs = {}
+    for cli, extra in (("jax", ["--exact"]), ("torch", ["--exact"]),
+                       ("torch", ["--device", "cpu"])):
+        for adv in ([], ["--advanced", "ghadbg=15"]):
+            out = tmp_path / f"{cli}{len(outs)}.oma"
+            CLIS[cli].main(["-e", "atrac3", "-i", src, "-o", str(out),
+                            "--nostdout"] + extra + adv)
+            outs[cli, extra[0], bool(adv)] = out.read_bytes()
+    for (cli, mode, adv), data in outs.items():
+        assert data == outs[cli, mode, False], (cli, mode)
+    assert outs["jax", "--exact", True] == outs["torch", "--exact", True]

@@ -113,10 +113,15 @@ def test_cli_encodes_and_refuses_what_is_not_ported(tmp_path):
     cli.main(["-e", "atrac3", "-i", src, "-o", dst, "--nostdout", "--device", "cpu"])
     frames, info = oma.read(dst)
     assert frames.shape == (5, 384) and info["codec"] == oma.CODEC_ATRAC3
-    for extra in (["-e", "atrac1"], ["-e", "atrac3plus"], ["-d"]):
+    for extra in (["-e", "atrac1"], ["-d"]):
         with pytest.raises(SystemExit) as exc:
             cli.main(extra + ["-i", src, "-o", dst, "--device", "cpu"])
         assert exc.value.code not in (0, None), extra
+    # ATRAC3+ is ported: it encodes (2048-byte frames)
+    cli.main(["-e", "atrac3plus", "-i", src, "-o", dst, "--nostdout",
+              "--device", "cpu"])
+    frames, info = oma.read(dst)
+    assert frames.shape == (3, 2048) and info["codec"] == oma.CODEC_ATRAC3PLUS
     # ATRAC3 --exact and --yaml-log are ported: they encode
     log = tmp_path / "g.yaml"
     for extra in (["--exact"], ["--yaml-log", str(log)]):

@@ -1,6 +1,6 @@
 """The port's copies of the JAX package's numpy-only host modules against
-the originals on the same inputs: table arrays equal; the ATRAC3 and
-ATRAC1 frame packers, the bit packer (native and numpy forms), the
+the originals on the same inputs: table arrays equal; the ATRAC3+ format
+data byte-identical; the ATRAC3, ATRAC1 and ATRAC3+ frame packers, the bit packer (native and numpy forms), the
 containers and the audio writers byte-identical; the ATRAC1 exact encoder
 and decoder and the ATRAC3 exact encoder equal; the operator messages the
 same text.  The copies that name their package (the ATRAC3 exact encoder's
@@ -21,6 +21,7 @@ from atracdenc_tpu.models.atrac1 import exact_synth as jexact_synth
 from atracdenc_tpu.models.atrac1 import frame as jframe1, tables as jtables1
 from atracdenc_tpu.models.atrac3 import exact_enc as jexact_enc3
 from atracdenc_tpu.models.atrac3 import frame as jframe3, tables as jtables3
+from atracdenc_tpu.models.atrac3p import frame as jframe3p, tables as jtables3p
 from atracdenc_tpu.utils import bitpack as jbitpack
 from atracdenc_tpu.utils import operator_log as jlog, progress as jprogress
 from atracdenc_tpu_torch.containers import aea, at3, oma, raw, rm
@@ -29,6 +30,8 @@ from atracdenc_tpu_torch.models.atrac1 import exact_enc, exact_synth
 from atracdenc_tpu_torch.models.atrac1 import frame as frame1, tables as tables1
 from atracdenc_tpu_torch.models.atrac3 import exact_enc as exact_enc3
 from atracdenc_tpu_torch.models.atrac3 import frame as frame3, tables as tables3
+from atracdenc_tpu_torch.models.atrac3p import frame as frame3p
+from atracdenc_tpu_torch.models.atrac3p import tables as tables3p
 from atracdenc_tpu_torch.models.atrac3.encoder import encode_track
 from atracdenc_tpu_torch.testing import cpu_setup
 from atracdenc_tpu_torch.utils import bitpack, native, operator_log, progress
@@ -54,8 +57,9 @@ def _same(a, b, name):
         assert a == b, name
 
 
-@pytest.mark.parametrize("port,ref", [(tables3, jtables3), (tables1, jtables1)],
-                         ids=["atrac3", "atrac1"])
+@pytest.mark.parametrize("port,ref", [(tables3, jtables3), (tables1, jtables1),
+                                      (tables3p, jtables3p)],
+                         ids=["atrac3", "atrac1", "atrac3plus"])
 def test_tables_equal(port, ref):
     names = [k for k, v in vars(ref).items() if not k.startswith("_")
              and isinstance(v, (np.ndarray, int, float, tuple))]
@@ -79,6 +83,38 @@ def test_atrac3_frame_pack_unpack(js):
     assert np.array_equal(packed, jframe3.pack(planes, fb, js=js))
     _same(jframe3.unpack(g["ref_frames"], 2, js=js),
           frame3.unpack(g["ref_frames"], 2, js=js), "unpack")
+
+
+@pytest.mark.parametrize("channels", [2, 1])
+def test_atrac3plus_frame_pack_unpack(channels):
+    """Planes with tones (sharing and envelopes) packed by both, and the
+    frames unpacked by both; the tonal-block field walk and the frequency
+    pack of both on every frame."""
+    from atracdenc_tpu_torch.models.atrac3p.encoder import (_num_tone_bands,
+                                                            encode_track)
+    n = np.arange(2048 * 4)
+    x = 0.5 * np.sin(2 * np.pi * 689.0625 * n / 44100)
+    x[: n.size // 2] *= 0.05
+    pcm = np.stack([x, 0.8 * x])[:channels].astype(np.float32)
+    planes = encode_track(pcm, device="cpu")
+    packed = frame3p.pack(planes, channels)
+    assert np.array_equal(packed, jframe3p.pack(planes, channels))
+    tones = planes["tones"]
+    assert tones["valid"].any()
+    for fi in range(packed.shape[0]):
+        _same(jframe3p.unpack_frame(packed[fi], channels),
+              frame3p.unpack_frame(packed[fi], channels), f"unpack {fi}")
+        nb = int(_num_tone_bands(tones)[fi])
+        if not nb:
+            continue
+        assert frame3p.tonal_block_fields(tones, fi, channels, nb) == \
+            jframe3p.tonal_block_fields(tones, fi, channels, nb)
+        for freq, valid in zip(tones["freq"][:, fi].reshape(-1, 8),
+                               tones["valid"][:, fi].reshape(-1, 8)):
+            if valid.any():
+                f = [int(v) for v in freq[valid]]
+                assert frame3p.create_freq_bit_pack(f) == \
+                    jframe3p.create_freq_bit_pack(f)
 
 
 def test_atrac1_frame_pack_unpack():
@@ -188,7 +224,10 @@ def test_operator_messages():
         assert "50% done" in out.getvalue()
 
 
-@pytest.mark.parametrize("path", ["models/atrac3/yaml_log.py",
+@pytest.mark.parametrize("path", ["models/atrac3p/tables.py",
+                                  "models/atrac3p/frame.py",
+                                  "models/atrac3p/format_data.npz",
+                                  "models/atrac3/yaml_log.py",
                                   "models/atrac3/exact_gain.py",
                                   "models/atrac3/exact_enc.py",
                                   "tools/__init__.py", "tools/omainfo.py",

@@ -52,14 +52,28 @@ units = at1_frame.pack(merged)
 assert units.shape == (8, 212)
 assert (device_pack.pack_device({k: torch.from_numpy(v) for k, v in merged.items()}).numpy() == units).all()
 assert decoder.decode_track(planes1, exact=False, device="cpu").shape == (2, 512 * 4)
+from atracdenc_tpu_torch.models.atrac3p import decoder as at3p_decoder
+from atracdenc_tpu_torch.models.atrac3p import encoder as at3p
+from atracdenc_tpu_torch.models.atrac3p.device_pack import pack_device
+k = np.arange(2048 * 2)
+pcm3p = np.stack([0.4 * np.sin(2 * np.pi * 689.0625 * k / 44100)] * 2).astype(np.float32)
+planes3p = at3p.encode_track(pcm3p, device="cpu")
+assert planes3p["tones"]["valid"].any()
+frames3p = pack_device({key: ({kk: torch.from_numpy(vv) for kk, vv in v.items()}
+                              if isinstance(v, dict) else torch.from_numpy(v))
+                        for key, v in planes3p.items()}, 2).numpy()
+assert frames3p.shape == (2, 2048)
+pcm3p_back = at3p_decoder.decode_track(frames3p, 2, device="cpu")
+assert pcm3p_back.shape == (2, 2 * 2048 - 368) and np.isfinite(pcm3p_back).all()
 assert not any(m.split(".")[0] in ("jax", "atracdenc_tpu") for m in sys.modules)
 print("ok")
 """
 
 
 def test_port_imports_and_encodes_without_jax():
-    """The whole port imports, encodes and decodes in a process that
-    refuses both ``jax`` and ``atracdenc_tpu``."""
+    """The whole port imports, encodes and decodes (ATRAC3, ATRAC1 and
+    ATRAC3+, GHA on, through the device packer) in a process that refuses
+    both ``jax`` and ``atracdenc_tpu``."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True,
                          text=True, env=env, cwd=ROOT, timeout=300)
