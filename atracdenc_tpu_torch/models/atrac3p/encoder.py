@@ -261,6 +261,58 @@ def _encode_core(pcm, gha_mask=7, wb_refine=None):
     return core if had else _drop_streams(core)
 
 
+def core_frames(pcm, f0, f1, gha_mask=7, wb_refine=None, device=None):
+    """The whole-track core's output frames [f0, f1) of pcm [S, C, T]
+    (numpy): ``_encode_core`` itself when they are all the frames, else a
+    chunk window that reads the PQF history, the context frames before f0
+    and the lookahead frame after f1 from pcm (zeros past either end).
+    Output frame 0 carries no tone frame, so its tone planes are zeros as
+    in the whole-track core, not a silent context frame's analysis."""
+    dev = runtime.device(device)
+    n, t = T.NUM_SAMPLES, pcm.shape[-1]
+    if f0 == 0 and f1 * n == t:
+        return _encode_core(runtime.to_torch(pcm, dev), gha_mask, wb_refine)
+    a, b = f0 * n - pqf.OVERLAP - CHUNK_LEFT * n, (f1 + CHUNK_RIGHT) * n
+    ext = np.pad(pcm[..., max(a, 0):min(b, t)],
+                 ((0, 0), (0, 0), (max(-a, 0), max(b - t, 0))))
+    *arrays, tone_out = _core_impl(runtime.to_torch(ext, dev), gha_mask,
+                                   wb_refine, CHUNK_LEFT, CHUNK_RIGHT,
+                                   b > t, True)
+    if tone_out is not None and f0 == 0:
+        for key, v in tone_out.items():
+            v = v.clone()
+            v[(slice(None),) * (1 if key in _TONE_FRAME_AXIS_S else 2)
+              + (0,)] = 0
+            tone_out[key] = v
+    return (*arrays, tone_out)
+
+
+def core_dict(core):
+    """Core outputs as one flat dict: sfi, mant, spec_tab, spec_bits and
+    tones.<plane>."""
+    *arrays, tone_out = core
+    out = dict(zip(("sfi", "mant", "spec_tab", "spec_bits"), arrays))
+    out.update({f"tones.{k}": v for k, v in (tone_out or {}).items()})
+    return out
+
+
+def dryrun_sharded(mesh, mesh1):
+    """Run the core (GHA mask 7) over a (dp, sp) mesh on tiny shapes and
+    assert that every plane equals the single-rank run's."""
+    from atracdenc_tpu_torch.parallel.mesh import encode_core_at3p_sharded
+
+    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+    s = max(2, dp)
+    t = T.NUM_SAMPLES * 2 * sp
+    rng = np.random.default_rng(2)
+    pcm = (0.25 * rng.standard_normal((s, 2, t))).astype(np.float32)
+    got = encode_core_at3p_sharded(pcm, mesh, gha_mask=7)
+    ref = encode_core_at3p_sharded(pcm, mesh1, gha_mask=7)
+    assert got.keys() == ref.keys()
+    for k in ref:
+        assert np.array_equal(got[k], ref[k]), f"AT3P sharded != unsharded: {k}"
+
+
 def _gha_mask_of(use_gha):
     if use_gha is True:
         return 7

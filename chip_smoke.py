@@ -73,6 +73,24 @@ Phases (each asserts; any failure exits non-zero):
                 decoded on CUDA within 1e-5 of its CPU decode, finite,
                 within +-1; one more encode under torch.profiler: device
                 busy ms, the top device kernels and the launch count
+ 12. mesh     — the parent launches 4 rank processes on the card (dp 2 x
+                sp 2, gloo; ``atracdenc_tpu_torch/parallel/``): phase 6's
+                corpus through ``encode_batch_at3_bytes_sharded`` (SHA-256
+                and byte identity against phase 6's bytes, >= 0.999, and
+                the frames that differ), phase 7's leg through
+                ``encode_batch_sharded`` (the values that differ from phase
+                7's planes, at most 1e-3 of each), ``decode_batch_at1_sharded``
+                over dp = 4 within 1e-6 of one process, the ATRAC3+ core
+                at phase 11's shape (GHA 7) against one process; the
+                counters of A, B, C and E read in every rank must be > 0;
+                the sharded call's wall time beside phase 6's
+ 13. transcode — three 30 s stereo WAVs (phase 8's and two more) through
+                ``python -m atracdenc_tpu_torch.tools.transcode`` for each
+                codec, in one process and as --hosts 2 (two processes, a
+                free coordinator port): each file written once, the same
+                bytes, phase 8's WAV equal to ``cli.main``'s file (ATRAC3 at
+                the CLI's 1024-frame chunks), --resume skipping all three;
+                the "x realtime" lines
 The last two lines of stdout are the card's nvidia-smi name / power limit
 (preceded by the kernels JSON line) and {"ok": true, "device": {...}}.
 
@@ -180,6 +198,214 @@ def at1_units(planes):
     bench.py merges them per stream before packing."""
     return {k: planes[k].transpose(1, 2).reshape((-1,) + planes[k].shape[3:])
             for k in AT1_PLANES}
+
+
+MESH_RANKS = 4                             # phase 12: dp 2 x sp 2 on one card
+AT3P_STREAMS, AT3P_FRAMES = 8, 128         # bench.py's AT3P leg (phase 11)
+
+
+def mesh_rank(rank, coordinator, out_dir, spec):
+    """One rank of phase 12, started by ``mesh_phase`` as a fresh
+    interpreter: the sharded calls at the bench shapes of ``spec``, each
+    with the launch counters zeroed just before and read just after (the
+    call's own gather included); rank 0 saves the gathered results and
+    every rank's counts and times."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from atracdenc_tpu_torch.ops import at1_alloc, greedy, quant_cost, rate_control
+    from atracdenc_tpu_torch.parallel import distributed as D
+    from atracdenc_tpu_torch.parallel import mesh as M
+    spec = json.loads(spec)
+    t_start = time.perf_counter()
+    dev = D.initialize(coordinator, MESH_RANKS, rank, device=spec["device"])
+    mesh = M.make_mesh(MESH_RANKS, device=dev)
+    assert mesh.shape == {"dp": 2, "sp": 2}, mesh.shape
+    mods = {"A": quant_cost, "B": greedy, "C": rate_control, "E": at1_alloc}
+
+    def timed(fn):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        dist.barrier()
+        for m in mods.values():
+            m.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    pcm = bench_corpus(spec["streams"], spec["frames"])
+    pcm1 = pcm[:spec["at1_streams"], :, :512 * spec["at1_frames"]]
+    pcm3p = pcm[:spec["at3p_streams"], :, :2048 * spec["at3p_frames"]]
+    M.encode_batch_at3_bytes_sharded(pcm, mesh)               # warm
+    at3, t_at3 = timed(lambda: M.encode_batch_at3_bytes_sharded(pcm, mesh))
+    counts = {k: mods[k].launches for k in "ABC"}
+    M.encode_batch_sharded(pcm1, mesh)                        # warm
+    at1, t_at1 = timed(lambda: M.encode_batch_sharded(pcm1, mesh))
+    counts["E"] = at1_alloc.launches
+    dec = M.decode_batch_at1_sharded(at1, M.make_mesh(MESH_RANKS, dp=4,
+                                                      device=dev))
+    core, t_at3p = timed(lambda: M.encode_core_at3p_sharded(pcm3p, mesh,
+                                                            gha_mask=7))
+    every = [None] * MESH_RANKS
+    dist.all_gather_object(every, {"counts": counts, "t_at3": t_at3,
+                                   "t_at1": t_at1, "t_at3p": t_at3p})
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "out.npz"), at3=at3, at1_decode=dec,
+                 **{f"at1.{k}": v for k, v in at1.items()},
+                 **{f"at3p.{k}": v for k, v in core.items()})
+        with open(os.path.join(out_dir, "out.json"), "w") as fp:
+            json.dump({"counts": [e["counts"] for e in every],
+                       **{k: max(e[k] for e in every)
+                          for k in ("t_at3", "t_at1", "t_at3p")},
+                       "t_ranks": time.perf_counter() - t_start}, fp)
+    D.finalize()
+    return 0
+
+
+def _differing(a, b, axes=3):
+    """Count of differing values, and the leading-axes indices where they
+    are (at most 20)."""
+    import numpy as np
+    where = sorted({tuple(ix[:axes]) for ix in np.argwhere(a != b).tolist()})
+    return int((a != b).sum()), where[:20]
+
+
+def mesh_phase(dev, smi, work, pcm, at3_ref, t_at3_ref, at1_ref):
+    """Phase 12: the parent launches 4 rank processes on ``dev`` (dp 2, sp 2,
+    gloo) and holds their gathered results against the one-process runs:
+    ATRAC3 bytes against phase 6's (``at3_ref``, on the corpus ``pcm``),
+    ATRAC1 planes against phase 7's (``at1_ref``), the dp = 4 decode and
+    the ATRAC3+ core against this process's own 1 x 1 mesh."""
+    import numpy as np
+    from atracdenc_tpu_torch.parallel import distributed as D
+    from atracdenc_tpu_torch.parallel import mesh as M
+    t_phase = time.perf_counter()
+    streams, frames = at3_ref.shape[:2]
+    at1_streams, _, at1_frames = at1_ref["bfu_idx"].shape
+    spec = {"device": dev.type, "streams": streams, "frames": frames,
+            "at1_streams": at1_streams, "at1_frames": at1_frames,
+            "at3p_streams": min(AT3P_STREAMS, streams),
+            "at3p_frames": min(AT3P_FRAMES, frames // 2)}
+    mesh_dir = os.path.join(work, "mesh")
+    os.makedirs(mesh_dir, exist_ok=True)
+    D.launch(lambda r, coord: [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                               "--mesh-rank", str(r), coord, mesh_dir,
+                               json.dumps(spec)], MESH_RANKS, timeout=400)
+    got = dict(np.load(os.path.join(mesh_dir, "out.npz")))
+    with open(os.path.join(mesh_dir, "out.json")) as fp:
+        info = json.load(fp)
+    for r, c in enumerate(info["counts"]):
+        assert all(c[k] > 0 for k in "ABCE") or dev.type == "cpu", (r, c)
+    fr = got["at3"]
+    assert fr.shape == at3_ref.shape, fr.shape
+    n_st = streams * frames
+    ident = float(np.mean(fr == at3_ref))
+    log(f"[12 mesh] ATRAC3 {streams} x {frames} stereo frames through "
+        f"encode_batch_at3_bytes_sharded on 2 x 2 ranks of one card: "
+        f"{info['t_at3']:.3f} s = {n_st / info['t_at3']:.1f} stereo frames/s "
+        f"(phase 6, one process: {t_at3_ref:.3f} s = {n_st / t_at3_ref:.1f}); "
+        f"sha256 {digest(fr)} (phase 6 {digest(at3_ref)}), byte identity "
+        f"{ident!r}, (stream, frame) that differ "
+        f"{_differing(fr, at3_ref, 2)} | {smi}")
+    assert ident >= 0.999, ident
+    diffs = {k: _differing(got[f"at1.{k}"], v) for k, v in at1_ref.items()}
+    log(f"[12 mesh] ATRAC1 {at1_streams} x {CHANNELS} x {at1_frames} through "
+        f"encode_batch_sharded on 2 x 2: {info['t_at1']:.4f} s; against phase "
+        f"7's planes, values that differ and their (stream, channel, frame): "
+        f"{diffs}")
+    for k, (n_diff, _) in diffs.items():
+        assert n_diff <= 1e-3 * at1_ref[k].size, (k, n_diff)
+    dec = got["at1_decode"]
+    dec1 = M.decode_batch_at1_sharded({k: got[f"at1.{k}"] for k in at1_ref},
+                                      M.Mesh(1, 1, dev))
+    derr = float(np.abs(dec - dec1).max())
+    log(f"[12 mesh] ATRAC1 decode over dp = 4: max |sharded - one process| "
+        f"{derr!r} (bound 1e-6)")
+    assert dec.shape == dec1.shape and derr <= 1e-6, derr
+    s3p, f3p = spec["at3p_streams"], spec["at3p_frames"]
+    core1 = M.encode_core_at3p_sharded(pcm[:s3p, :, :2048 * f3p],
+                                       M.Mesh(1, 1, dev), gha_mask=7)
+    pdiff = {k: _differing(got[f"at3p.{k}"], v) for k, v in core1.items()}
+    log(f"[12 mesh] ATRAC3+ core {s3p} x {f3p} stereo frames, GHA 7, on 2 x 2: "
+        f"{info['t_at3p']:.4f} s; against one process, planes with values "
+        f"that differ: { {k: v for k, v in pdiff.items() if v[0]} or 'none'} "
+        f"of {len(core1)} planes")
+    for k, (n_diff, _) in pdiff.items():
+        assert n_diff <= 1e-3 * core1[k].size, (k, n_diff)
+    log(f"[12 mesh] launches read in the ranks (A, B, C: the ATRAC3 call; E: "
+        f"the ATRAC1 call) {info['counts']}; rank 0 ran {info['t_ranks']:.1f} s; "
+        f"phase 12 took {time.perf_counter() - t_phase:.1f} s | {smi}")
+
+
+def transcode_phase(smi, work, wavs, cli_out, device=None, seconds=30):
+    """Phase 13: ``wavs`` plus WAVs made here to three ``seconds``-long
+    stereo files through ``python -m atracdenc_tpu_torch.tools.transcode``
+    for each codec, in one process and as --hosts 2: each file written once,
+    the same bytes, the first file equal to ``cli_out[codec]`` (cli.main's
+    output of it), and --resume skipping all three.  ATRAC3 runs at the
+    CLI's chunking (1024 frames), so the two paths differ only in the
+    packer (device here, host there)."""
+    import numpy as np
+    from atracdenc_tpu_torch.io import wav
+    from atracdenc_tpu_torch.parallel import distributed as D
+    t_phase = time.perf_counter()
+    tc = os.path.join(work, "transcode")
+    os.makedirs(tc, exist_ok=True)
+    n = 44100 * seconds
+    tt = np.arange(n) / 44100.0
+    wavs = list(wavs)
+    for f0, seed in ((997.0, 21), (1503.0, 22))[:3 - len(wavs)]:
+        rng = np.random.default_rng(seed)
+        sig = 0.35 * np.sin(2 * np.pi * f0 * tt)
+        wavs.append(os.path.join(tc, f"in{seconds}s_{seed}.wav"))
+        wav.write(wavs[-1], np.clip(np.stack([sig, 0.8 * sig]) + 0.03
+                                    * rng.standard_normal((2, n)), -1, 1)
+                  .astype(np.float32), 44100)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    for codec in ("atrac1", "atrac3", "atrac3plus"):
+        cmd = [sys.executable, "-m", "atracdenc_tpu_torch.tools.transcode",
+               *wavs, "--codec", codec, "--chunk-frames", "1024"]
+        if device:
+            cmd += ["--device", device]
+        one, two = (os.path.join(tc, f"{codec}_{k}") for k in ("one", "two"))
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd + ["--out-dir", one], cwd=ROOT, timeout=300,
+                             capture_output=True, text=True, env=env)
+        t_one = time.perf_counter() - t0
+        assert res.returncode == 0, res.stderr[-3000:]
+        lines = res.stdout.splitlines()
+        assert [ln.split(" -> ")[0] for ln in lines if " -> " in ln] == wavs
+        t0 = time.perf_counter()
+        outs = D.launch(lambda r, coord: cmd + [
+            "--out-dir", two, "--hosts", "2", "--host-id", str(r),
+            "--coordinator", coord], 2, timeout=300)
+        t_two = time.perf_counter() - t0
+        for r, out in enumerate(outs):
+            assert [ln.split(" -> ")[0] for ln in out.splitlines()
+                    if " -> " in ln] == wavs[r::2], (r, out)
+        names = sorted(os.listdir(one))
+        assert names == sorted(os.listdir(two)) and len(names) == 3, names
+        for name in names:
+            with open(os.path.join(one, name), "rb") as a, \
+                    open(os.path.join(two, name), "rb") as b:
+                assert a.read() == b.read(), (codec, name)
+        first = os.path.splitext(os.path.basename(wavs[0]))[0]
+        with open(os.path.join(one, first + (".aea" if codec == "atrac1"
+                                             else ".oma")), "rb") as a, \
+                open(cli_out[codec], "rb") as b:
+            assert a.read() == b.read(), f"{codec}: transcode != cli.main"
+        res = subprocess.run(cmd + ["--out-dir", one, "--resume"], cwd=ROOT,
+                             timeout=300, capture_output=True, text=True,
+                             env=env)
+        assert res.returncode == 0 and res.stdout.count("skip ") == 3, \
+            res.stdout + res.stderr[-2000:]
+        log(f"[13 transcode] {codec}: 3 x {seconds} s WAVs, one process "
+            f"{t_one:.1f} s wall ({lines[-1]}); --hosts 2 {t_two:.1f} s wall "
+            f"({'; '.join(o.splitlines()[-1] for o in outs)}); the same bytes, "
+            f"each file written once, {first} equal to cli.main's; --resume "
+            f"skipped all 3 | {smi}")
+    log(f"[13 transcode] phase 13 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -741,7 +967,7 @@ def main():
 
     # --- 11. ATRAC3+ real size: bench.py's AT3P leg, GHA mask 7
     t_phase11 = time.perf_counter()
-    s11, f11 = 8, 128
+    s11, f11 = AT3P_STREAMS, AT3P_FRAMES
     x11 = x[:s11, :, :2048 * f11].contiguous()
     at3p_encoder.encode_frames_bytes(x11, CHANNELS)           # warm
     torch.cuda.synchronize()
@@ -801,6 +1027,13 @@ def main():
         f"{busy11:.3f} ms in {sum(c for _, _, c in ev11)} device launches; "
         f"top: {top11}; phase 11 took {time.perf_counter() - t_phase11:.1f} s")
 
+    # --- 12. the mesh at full width; 13. the batch transcoder
+    torch.cuda.empty_cache()
+    mesh_phase(dev, smi, work, pcm, fr_dev, t_dev,
+               {k: runtime.to_numpy(planes1[k]) for k in AT1_PLANES})
+    transcode_phase(smi, work, [wav_in], {"atrac3": oma_out, "atrac1": aea_out,
+                                          "atrac3plus": oma3p})
+
     print(json.dumps({"kernels": [dict(r, launches=launches[name])
                                   for name, r in rows.items()]}))
     print(smi)
@@ -810,4 +1043,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(int(sys.argv[2]), *sys.argv[3:6]))
     sys.exit(main())

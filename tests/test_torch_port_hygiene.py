@@ -65,6 +65,22 @@ frames3p = pack_device({key: ({kk: torch.from_numpy(vv) for kk, vv in v.items()}
 assert frames3p.shape == (2, 2048)
 pcm3p_back = at3p_decoder.decode_track(frames3p, 2, device="cpu")
 assert pcm3p_back.shape == (2, 2 * 2048 - 368) and np.isfinite(pcm3p_back).all()
+from atracdenc_tpu_torch.ops.sort import bitonic_sort
+key, (perm,) = bitonic_sort(torch.tensor([[3.0, 1.0, 2.0, 0.0]]), [torch.arange(4)[None]])
+assert key.tolist() == [[0.0, 1.0, 2.0, 3.0]] and perm.tolist() == [[3, 1, 2, 0]]
+from atracdenc_tpu_torch.parallel import mesh as M
+mesh1 = M.Mesh(1, 1, "cpu")
+assert M.encode_batch_sharded(pcm1[None], mesh1)["wordlen"].shape == (1, 2, 4, 52)
+assert M.encode_batch_at3_bytes_sharded(
+    (0.1 * rng.standard_normal((1, 2, 2048))).astype(np.float32), mesh1).shape == (1, 2, 384)
+import os, sys as _sys, tempfile
+from atracdenc_tpu_torch.io import wav
+from atracdenc_tpu_torch.tools import transcode
+with tempfile.TemporaryDirectory() as d:
+    wav.write(os.path.join(d, "a.wav"), pcm1, 44100)
+    assert transcode.main([os.path.join(d, "a.wav"), "--codec", "atrac1",
+                           "--device", "cpu", "--out-dir", d]) == 0
+    assert os.path.getsize(os.path.join(d, "a.aea")) > 2048
 assert not any(m.split(".")[0] in ("jax", "atracdenc_tpu") for m in sys.modules)
 print("ok")
 """
@@ -79,6 +95,12 @@ def test_port_imports_and_encodes_without_jax():
                          text=True, env=env, cwd=ROOT, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+# the modules of the scale-out and batch slice, named so that a rename
+# cannot drop them from the import checks below
+SCALE_OUT = ("parallel/__init__.py", "parallel/distributed.py",
+             "parallel/mesh.py", "tools/transcode.py", "ops/sort.py")
 
 
 def _imported_modules(path):
@@ -103,6 +125,30 @@ def test_only_shared_imports_the_jax_package():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "atracdenc_tpu"), (path, mod)
     assert not os.path.exists(os.path.join(pkg, "shared.py"))
+    for rel in SCALE_OUT:
+        assert os.path.join(pkg, rel) in files, rel
+        assert not any(m.split(".")[0] in ("jax", "jaxlib", "atracdenc_tpu")
+                       for m in _imported_modules(os.path.join(pkg, rel))), rel
+
+
+def test_ranks_never_fall_back_to_the_cpu(tmp_path):
+    """A rank, a mesh and the transcoder run on CUDA unless the CPU is
+    asked for: without a card they raise, never move to the CPU."""
+    from atracdenc_tpu_torch.parallel import distributed as D, mesh as M
+    from atracdenc_tpu_torch.tools import transcode
+    assert D.rank_device("cpu", 3, 4).type == "cpu"
+    with pytest.raises(ValueError, match="local_devices"):
+        D.initialize(local_devices=2, device="cuda")
+    if torch.cuda.is_available():
+        assert D.rank_device("cuda", 3, 4).type == "cuda"
+        return
+    for call in (lambda: D.rank_device("cuda", 0, 4), D.initialize,
+                 lambda: M.Mesh(1, 1),
+                 lambda: transcode.main(["none.wav", "--out-dir",
+                                         str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA requested"):
+            call()
+    assert not os.listdir(tmp_path)
 
 
 def test_chip_smoke_refuses_without_cuda():
