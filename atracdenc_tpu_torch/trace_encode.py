@@ -25,35 +25,22 @@ import time
 import torch
 
 from atracdenc_tpu_torch import kernels
+from atracdenc_tpu_torch.bench import (AT1_FRAMES, AT1_STREAMS, SHAPES,
+                                       at1_units, corpus, device_seconds)
 
-STREAMS, FRAMES = 64, 256
-AT1_STREAMS, AT1_FRAMES = 8, 512
+STREAMS, FRAMES = SHAPES["cuda"]
 
 
 def _corpus(streams, nframes, dev):
-    import numpy as np
-    t = 1024 * nframes
-    rng = np.random.default_rng(42)
-    n = np.arange(t, dtype=np.float64)
-    base = 0.4 * np.sin(2 * np.pi * 997.0 * n / 44100.0)
-    pcm = np.clip(base[None, None, :] * np.asarray([1.0, 0.8])[None, :, None]
-                  + 0.05 * rng.standard_normal((streams, 2, t)), -1, 1)
-    return torch.from_numpy(pcm.astype(np.float32)).to(dev)
+    return torch.from_numpy(corpus(streams, nframes)).to(dev)
 
 
 def cuda_ms(fn, reps, warmup=1):
     """Mean ms of fn() over reps runs, by CUDA events, after warmup runs."""
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return 1e3 * device_seconds(torch.device("cuda"),
+                                lambda: [fn() for _ in range(reps)]) / reps
 
 
 def capture(sites, fn):
@@ -192,10 +179,7 @@ def main(argv=None):
                   (pack1, "pack_device", "device pack")]
 
     def at1_path(xx):
-        planes = enc1.encode_frames(xx)
-        return pack1.pack_device({k: planes[k].transpose(1, 2).reshape(
-            (-1,) + planes[k].shape[3:]) for k in ("short_mask", "bfu_idx",
-                                                   "wordlen", "sfi", "mant")})
+        return pack1.pack_device(at1_units(enc1.encode_frames(xx)))
 
     x3 = _corpus(STREAMS, FRAMES, dev)
     out = {"card": card, "atrac3": _trace(

@@ -91,6 +91,11 @@ Phases (each asserts; any failure exits non-zero):
                 bytes, phase 8's WAV equal to ``cli.main``'s file (ATRAC3 at
                 the CLI's 1024-frame chunks), --resume skipping all three;
                 the "x realtime" lines
+ 14. bench    — ``atracdenc_tpu_torch.bench.main(["--repeats", "3"])`` in
+                this process, every counter zeroed just before: its JSON
+                line on a log line; platform cuda, every rate and its
+                spread > 0, value the larger AT3 route; its three leg
+                SHA-256s equal phases 6, 7 and 11; A, B, C and E launched
 The last two lines of stdout are the card's nvidia-smi name / power limit
 (preceded by the kernels JSON line) and {"ok": true, "device": {...}}.
 
@@ -118,8 +123,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-STREAMS, CHANNELS, NFRAMES = 64, 2, 256
-AT1_STREAMS, AT1_FRAMES = 8, 512          # bench.py:220, pcm[:8, :, :512 * 512]
+CHANNELS = 2
 HBM_BPS, F32_OPS = 3.35e12, 67e12         # H100 SXM: HBM bytes/s, f32 ops/s
 # Operations each function needs, estimated per unit of its work:
 #   A  per value the mask keeps: 8 wordlens x (multiply, round, square, add,
@@ -139,18 +143,6 @@ OPS = {"A_value": 66, "D_ea_elem": 20 + 7, "B_step": 7, "C_eval": 32 * 30,
 
 def log(*a):
     print(*a, flush=True)
-
-
-def bench_corpus(streams, nframes):
-    """bench.py's AT3 corpus: 997 Hz tone (ch1 at 0.8) + 0.05 noise, seed 42."""
-    import numpy as np
-    t = 1024 * nframes
-    rng = np.random.default_rng(42)
-    n = np.arange(t, dtype=np.float64)
-    base = 0.4 * np.sin(2 * np.pi * 997.0 * n / 44100.0)
-    return np.clip(base[None, None, :] * np.asarray([1.0, 0.8])[None, :, None]
-                   + 0.05 * rng.standard_normal((streams, CHANNELS, t)),
-                   -1, 1).astype(np.float32)
 
 
 def nbytes(*tensors):
@@ -190,18 +182,7 @@ def bound(n_bytes, n_ops):
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
-AT1_PLANES = ("short_mask", "bfu_idx", "wordlen", "sfi", "mant")
-
-
-def at1_units(planes):
-    """ATRAC1 planes [S, C, F, ...] -> [S*F*C, ...] in stream order, as
-    bench.py merges them per stream before packing."""
-    return {k: planes[k].transpose(1, 2).reshape((-1,) + planes[k].shape[3:])
-            for k in AT1_PLANES}
-
-
 MESH_RANKS = 4                             # phase 12: dp 2 x sp 2 on one card
-AT3P_STREAMS, AT3P_FRAMES = 8, 128         # bench.py's AT3P leg (phase 11)
 
 
 def mesh_rank(rank, coordinator, out_dir, spec):
@@ -214,6 +195,7 @@ def mesh_rank(rank, coordinator, out_dir, spec):
     import torch
     import torch.distributed as dist
     sys.path.insert(0, ROOT)
+    from atracdenc_tpu_torch.bench import corpus
     from atracdenc_tpu_torch.ops import at1_alloc, greedy, quant_cost, rate_control
     from atracdenc_tpu_torch.parallel import distributed as D
     from atracdenc_tpu_torch.parallel import mesh as M
@@ -234,7 +216,7 @@ def mesh_rank(rank, coordinator, out_dir, spec):
         out = fn()
         return out, time.perf_counter() - t0
 
-    pcm = bench_corpus(spec["streams"], spec["frames"])
+    pcm = corpus(spec["streams"], spec["frames"])
     pcm1 = pcm[:spec["at1_streams"], :, :512 * spec["at1_frames"]]
     pcm3p = pcm[:spec["at3p_streams"], :, :2048 * spec["at3p_frames"]]
     M.encode_batch_at3_bytes_sharded(pcm, mesh)               # warm
@@ -278,6 +260,7 @@ def mesh_phase(dev, smi, work, pcm, at3_ref, t_at3_ref, at1_ref):
     ATRAC1 planes against phase 7's (``at1_ref``), the dp = 4 decode and
     the ATRAC3+ core against this process's own 1 x 1 mesh."""
     import numpy as np
+    from atracdenc_tpu_torch.bench import AT3P_FRAMES, AT3P_STREAMS
     from atracdenc_tpu_torch.parallel import distributed as D
     from atracdenc_tpu_torch.parallel import mesh as M
     t_phase = time.perf_counter()
@@ -415,7 +398,13 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     import numpy as np
-    from atracdenc_tpu_torch import cli, kernels, runtime
+    from atracdenc_tpu_torch import bench, cli, kernels, runtime
+    # the bench's shapes: ATRAC3 64 x 256 stereo frames, ATRAC1 8 x 2 x 512
+    # sound units (bench.py:220), ATRAC3+ 8 x 128 stereo frames (bench.py:230)
+    from atracdenc_tpu_torch.bench import (AT1_FRAMES, AT1_PLANES, AT1_STREAMS,
+                                           AT3P_FRAMES, AT3P_STREAMS, SHAPES,
+                                           at1_units, corpus)
+    STREAMS, NFRAMES = SHAPES["cuda"]
     from atracdenc_tpu_torch.containers import aea, at3, oma, rm
     from atracdenc_tpu_torch.io import audio, wav
     from atracdenc_tpu_torch.models.atrac1 import frame as at1_frame
@@ -471,7 +460,7 @@ def main():
 
     # --- 3. kernels at their paths' shapes: capture the inputs each kernel
     # gets during one encode of the bench corpus
-    pcm = bench_corpus(STREAMS, NFRAMES)
+    pcm = corpus(STREAMS, NFRAMES)
     x = torch.from_numpy(pcm).to(dev)
     x1 = torch.from_numpy(pcm[:AT1_STREAMS, :, :512 * AT1_FRAMES]).to(dev)
     default = dict(no_gain_control=False, no_tonal=False)
@@ -1033,6 +1022,27 @@ def main():
                {k: runtime.to_numpy(planes1[k]) for k in AT1_PLANES})
     transcode_phase(smi, work, [wav_in], {"atrac3": oma_out, "atrac1": aea_out,
                                           "atrac3plus": oma3p})
+
+    # --- 14. the port's bench in this process, its counters zeroed just
+    # before and read just after; its line goes to the log, never last
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as bench_out:
+        line = bench.main(["--repeats", "3"])
+    c14 = counts()
+    log(f"[14 bench] {bench_out.getvalue().strip()}")
+    ex = line["extra"]
+    assert ex["platform"] == "cuda" and ex["repeats"] == 3, ex
+    assert line["value"] == max(ex["at3_fps_xla_rate_ctl"],
+                                ex["at3_fps_pallas_rate_ctl"]), line
+    assert all(lo > 0 for lo, _ in ex["spread"].values()), ex["spread"]
+    want = {"at3": digest(fr_dev), "at1": digest(units_host), "at3p": digest(fr11)}
+    assert ex["sha256"] == want, (ex["sha256"], want)
+    assert all(c14[k] > 0 for k in "ABCE"), c14
+    log(f"[14 bench] python -m atracdenc_tpu_torch.bench --repeats 3 in "
+        f"{time.perf_counter() - t0:.1f} s: value {line['value']:.1f} stereo "
+        f"frames/s; leg digests equal phases 6, 7 and 11; launches in its "
+        f"window {c14} | {smi}")
 
     print(json.dumps({"kernels": [dict(r, launches=launches[name])
                                   for name, r in rows.items()]}))
