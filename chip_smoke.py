@@ -52,8 +52,9 @@ Phases (each asserts; any failure exits non-zero):
                 with ``fused_memo=True``, every counter zeroed just before:
                 D, B (final mantissas) and C launch, A does not; stereo
                 frames/s, a SHA-256 of the frame bytes, and the bytes'
-                identity with phase 6's (>= 0.999: the plain lanes' e1 is
-                summed in another order, a float knife edge)
+                identity with phase 6's (>= 0.999, the bench's gate on the
+                fused route; ``ops/quant.py::lane_sum`` gives both memos
+                one e1 sum order, and the H100 has measured 1.0)
  10. ATRAC3 decode real size — phase 6's device-packed bytes of 8 streams
                 (8 x 256 stereo frames of 384 B): host parse (unpack +
                 dequantize) and device decode (``decode_frames`` on
@@ -96,6 +97,30 @@ Phases (each asserts; any failure exits non-zero):
                 line on a log line; platform cuda, every rate and its
                 spread > 0, value the larger AT3 route; its three leg
                 SHA-256s equal phases 6, 7 and 11; A, B, C and E launched
+ 15. modes    — every ATRAC3 mode of the JAX package on the card
+                (``modes_phase``): (a) ``atracdenc_tpu_torch.selfcheck``'s five
+                modes against the hash file's ``cuda`` key, and each mode's
+                bytes against the CPU path's at identity >= 0.99, with the
+                frames that differ; (b) LP4 joint stereo (192 B) and the
+                plain mode (384 B, no gain control, no tonal) on phase 6's
+                corpus through
+                ``encode_frames_bytes``, the counters zeroed just before (A,
+                B, C launch), bytes equal encode + host ``frame.pack``, their
+                SHA-256 and stereo frames/s; (c) A, B and C against their
+                plain versions at the joint-stereo encode's inputs (phase
+                3's rules); (d) at3_js_golden (stereo > 0.99, mono > 0.85,
+                the mono side channel 1 QMF band of num_bfu 1, the device
+                packer equal to ``frame.pack``), at3_tonal_golden (> 0.99),
+                at3_tonal_dense_golden (> 0.97); (e) ``cli.main`` on a 5 s
+                stereo WAV through -e atrac3_lp4 and -e atrac3 --bitrate N
+                for every CONTAINER_PARAMS row: frame size and joint-stereo
+                flag read back with ``oma.read``, -d back within 1 dB RMS
+ 16. scaling  — ``atracdenc_tpu_torch.scaling_bench`` at 1, 2 and 4 rank
+                processes on the card (all dp; each rank warm, then 3 timed
+                calls): its table and JSON rows on log lines, the rows of
+                each configuration >= 0.999 identical to 1 rank's bytes
+``modes_phase`` and ``scaling_phase`` take their inputs as arguments, so a
+CPU rehearsal can call them at small shapes.
 The last two lines of stdout are the card's nvidia-smi name / power limit
 (preceded by the kernels JSON line) and {"ok": true, "device": {...}}.
 
@@ -175,11 +200,37 @@ def psnr(x, y):
     return 10 * np.log10((x ** 2).mean() / max((e ** 2).mean(), 1e-20))
 
 
+def ulps(a, b):
+    """Distance in units in the last place of two f32 tensors."""
+    import torch
+    return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+
+
 def bound(n_bytes, n_ops):
     """(bound_ms, bound_by): the least time for the bytes at the HBM rate
     or for the operations at the f32 rate, whichever is longer."""
     b_ms, o_ms = n_bytes / HBM_BPS * 1e3, n_ops / F32_OPS * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def _counters():
+    """Kernel -> (wrapper module, its launch counter's name), A to F."""
+    from atracdenc_tpu_torch.ops import (at1_alloc, greedy, quant_cost,
+                                         rate_control)
+    return {"A": (quant_cost, "launches"), "B": (greedy, "launches"),
+            "C": (rate_control, "launches"),
+            "D": (quant_cost, "full_launches"),
+            "E": (at1_alloc, "launches"),
+            "F": (rate_control, "bisect_launches")}
+
+
+def counts():
+    return {k: getattr(m, a) for k, (m, a) in _counters().items()}
+
+
+def zero_counts():
+    for m, a in _counters().values():
+        setattr(m, a, 0)
 
 
 MESH_RANKS = 4                             # phase 12: dp 2 x sp 2 on one card
@@ -391,6 +442,253 @@ def transcode_phase(smi, work, wavs, cli_out, device=None, seconds=30):
     log(f"[13 transcode] phase 13 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def _check_abc(calls):
+    """Kernels A, B and C on the inputs ``calls`` (trace_encode.capture's
+    record) against their plain versions, by phase 3's rules; -> a line."""
+    import torch
+    from atracdenc_tpu_torch.ops import greedy, quant_cost, rate_control
+    (a_args, _), = calls["A"]
+    err_k, vlc_k = quant_cost.quant_cost_plain(*a_args)
+    err_p, vlc_p = quant_cost.quant_cost_torch(*a_args)
+    assert torch.equal(vlc_k, vlc_p), "kernel A: vlc differs"
+    ulp = int(ulps(err_k, err_p).max())
+    assert ulp <= 4, f"kernel A: err off by {ulp} ulp"
+    for a, _ in calls["B"]:
+        e2k, acck = greedy.greedy_scan(*a)
+        e2p, accp = greedy.greedy_torch(*a)
+        both_nan = torch.isnan(e2k) & torch.isnan(e2p)
+        assert bool(((e2k == e2p) | both_nan).all()) and torch.equal(acck, accp), \
+            f"kernel B differs at {tuple(a[0].shape)}"
+    (c_args, c_kw), = calls["C"]
+    rounds = 0
+    for auto in (True, False):
+        kw = dict(c_kw, auto=auto)
+        outk = rate_control.rate_control_block(*c_args, **kw)
+        outp = rate_control.rate_control_torch(*c_args, **kw)
+        for name, k_, p_ in zip(("num_bfu", "mode", "wl"), outk, outp):
+            assert torch.equal(k_.to(p_.dtype), p_), \
+                f"kernel C (auto={auto}): {name} differs"
+        if auto:
+            rounds = int((c_args[5].long() - outk[0].long() + 1).sum())
+    c_ms = "not timed on the CPU"
+    if c_args[0].is_cuda:
+        from atracdenc_tpu_torch.trace_encode import cuda_ms
+        c_ms = cuda_ms(lambda: rate_control.rate_control_block(*c_args, **c_kw),
+                       5, 1)
+        c_ms = f"kernel {c_ms:.3f} ms"
+    return (f"A {tuple(a_args[0].shape)} vlc equal, err <= {ulp} ulp; B "
+            f"{len(calls['B'])} calls bit-equal (NaN on both sides equal); C "
+            f"{tuple(c_args[0].shape)} num_bfu / mode / wl equal, auto and "
+            f"fixed ({rounds} bisection rounds in auto; {c_ms})")
+
+
+def modes_phase(dev, smi, work, pcm, wav_seconds=5):
+    """Phase 15: every ATRAC3 mode of the JAX package on ``dev``.
+
+    (a) the selfcheck's five modes against the hash file's key for the
+    device type, and each mode's bytes against the CPU path's at identity
+    >= 0.99 (the whole corpus: a few seconds of host time); (b) LP4 joint
+    stereo (192 B) and the plain mode (384 B, no gain control, no tonal) on
+    the batch
+    ``pcm`` [S, 2, T] through ``encode_frames_bytes``, counters zeroed
+    first, bytes equal encode + host ``frame.pack``; (c) A, B and C against
+    their plain versions at the inputs of (b)'s joint-stereo encode; (d) the
+    goldens at3_js_golden (stereo > 0.99, mono > 0.85, the mono side channel
+    one QMF band of num_bfu 1, the device packer equal to frame.pack),
+    at3_tonal_golden (> 0.99) and at3_tonal_dense_golden (> 0.97); (e)
+    ``cli.main`` on a ``wav_seconds`` stereo WAV through ``-e atrac3_lp4``
+    and ``-e atrac3 --bitrate N`` for one N of every ``CONTAINER_PARAMS``
+    row: each file's frame size and joint-stereo flag, and ``-d`` back to
+    WAV within 1 dB RMS."""
+    import numpy as np
+    import torch
+    from atracdenc_tpu_torch import cli, runtime, selfcheck
+    from atracdenc_tpu_torch.containers import oma
+    from atracdenc_tpu_torch.io import audio, wav
+    from atracdenc_tpu_torch.models.atrac3 import (bitalloc, device_pack,
+                                                   encoder, frame)
+    from atracdenc_tpu_torch.models.atrac3 import tables as T3
+    from atracdenc_tpu_torch.trace_encode import capture
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    # (a) the selfcheck on this device
+    t0 = time.perf_counter()
+    got = selfcheck.compute(dev.type)
+    hashes = {k: selfcheck.digest(v) for k, v in got.items()}
+    t_sc = time.perf_counter() - t0
+    with open(selfcheck.HASH_FILE) as fp:
+        want = json.load(fp).get(dev.type)
+    log(f"[15 modes] selfcheck on {dev.type} in {t_sc:.1f} s: {hashes}; "
+        f"stored key {dev.type!r}: {'equal' if hashes == want else want}")
+    assert hashes == want, (hashes, want)
+    t0 = time.perf_counter()
+    cpu = selfcheck.compute("cpu")
+    cpu_hashes = {k: selfcheck.digest(v) for k, v in cpu.items()}
+    with open(selfcheck.HASH_FILE) as fp:
+        cpu_key = json.load(fp)["cpu"]
+    log(f"[15 modes] the CPU path on this host in {time.perf_counter() - t0:.1f}"
+        f" s: modes equal to the stored 'cpu' key "
+        f"{[k for k in cpu_hashes if cpu_hashes[k] == cpu_key[k]]}")
+    for k in selfcheck.MODES:
+        assert got[k].shape == cpu[k].shape, (k, got[k].shape, cpu[k].shape)
+        ident = float(np.mean(got[k] == cpu[k]))
+        log(f"[15 modes] selfcheck {k} {tuple(got[k].shape)}: {dev.type} "
+            f"against the CPU path: byte identity {ident!r} (floor 0.99), "
+            f"(bytes that differ, frames) "
+            f"{_differing(got[k], cpu[k], got[k].ndim - 1)}")
+        assert ident >= 0.99, (k, ident)
+
+    # (b) LP4 joint stereo and the plain mode at the batch's full width;
+    # (c) A, B, C on the joint-stereo encode's inputs
+    x = torch.from_numpy(pcm).to(dev)
+    streams, nframes = pcm.shape[0], pcm.shape[2] // 1024
+    n_st = streams * nframes
+    sites = [(bitalloc, "quant_cost_plain", "A"),
+             (bitalloc, "greedy_scan", "B"),
+             (bitalloc, "rate_control_block", "C")]
+    for label, opts in (
+            ("LP4 joint stereo", dict(frame_bytes=192, js=True,
+                                      no_gain_control=False, no_tonal=False)),
+            ("plain", dict(frame_bytes=384, js=False, no_gain_control=True,
+                           no_tonal=True))):
+        fb, js = opts["frame_bytes"], opts["js"]
+        calls = capture(sites, lambda: encoder.encode_frames_bytes(x, **opts))
+        sync()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = encoder.encode_frames_bytes(x, **opts)
+        sync()
+        dt = time.perf_counter() - t0
+        c = counts()
+        assert (all(c[k] > 0 for k in "ABC") and c["D"] == 0) or not cuda, c
+        fr = runtime.to_numpy(out)
+        t0 = time.perf_counter()
+        host = {k: runtime.to_numpy(v)
+                for k, v in encoder.encode_frames(x, **opts).items()}
+        want_fr = np.stack([frame.pack({k: v[s] for k, v in host.items()},
+                                       fb, js=js) for s in range(streams)])
+        t_host = time.perf_counter() - t0
+        assert fr.shape == (streams, nframes, fb), fr.shape
+        assert np.array_equal(fr, want_fr), \
+            f"{label}: {int((fr != want_fr).sum())} bytes differ from frame.pack"
+        log(f"[15 modes] {label} ({fb} B) {streams} x {nframes} stereo frames: "
+            f"encode + device pack {dt:.3f} s = {n_st / dt:.1f} stereo "
+            f"frames/s; bytes equal encode + frame.pack ({t_host:.1f} s), "
+            f"sha256 {digest(fr)} | {smi} | launches {c}")
+        if js:
+            log(f"[15 modes] kernels at the LP4 joint-stereo inputs: "
+                f"{_check_abc(calls)}")
+        del calls, out
+    del x
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (d) the goldens that only the CPU tests had encoded
+    gdir = os.path.join(ROOT, "tests", "golden")
+    gjs = np.load(os.path.join(gdir, "at3_js_golden.npz"))
+    js_opts = dict(frame_bytes=192, js=True, no_gain_control=False,
+                   no_tonal=False)
+    for label, pcm_g, ref, floor in (
+            ("stereo", gjs["pcm_in"], gjs["ref_frames"], 0.99),
+            ("mono", gjs["pcm_mono"], gjs["ref_mono"], 0.85)):
+        planes = encoder.encode_track(pcm_g, device=dev.type, **js_opts)
+        ours = frame.pack(planes, 192, js=True)
+        on_dev = runtime.to_numpy(device_pack.pack_device(
+            {k: runtime.to_torch(v, dev) for k, v in planes.items()}, 192,
+            js=True))
+        assert np.array_equal(on_dev, ours), f"JS {label}: device packer"
+        ident = float((ours == ref).mean())
+        side = ""
+        if pcm_g.shape[0] == 1:
+            for chans in frame.unpack(ours, 1, js=True):
+                s1 = chans[1]
+                assert len(s1["gain"]) == 1 and s1["num_bfu"] == 1 \
+                    and s1["wordlen"][0] == 0, s1
+            side = "; every side channel parses as 1 QMF band, num_bfu 1"
+        log(f"[15 modes] at3_js_golden {label}: byte identity vs reference "
+            f"{ident!r} (floor > {floor}); device packer equal to frame.pack"
+            f"{side}")
+        assert ident > floor, (label, ident)
+    for name, floor in (("at3_tonal_golden", 0.99),
+                        ("at3_tonal_dense_golden", 0.97)):
+        g = np.load(os.path.join(gdir, f"{name}.npz"))
+        planes = encoder.encode_track(g["pcm_in"], frame_bytes=384,
+                                      no_tonal=False, device=dev.type)
+        ident = float((frame.pack(planes, 384) == g["ref_frames"]).mean())
+        log(f"[15 modes] {name}: byte identity vs reference {ident!r} "
+            f"(floor > {floor}); longest tonal block "
+            f"{int(planes['tonal_len'].max())}")
+        assert ident > floor, (name, ident)
+    assert (planes["tonal_len"] > 5).any()
+
+    # (e) every ATRAC3 bitrate through the CLI and back
+    n = 44100 * wav_seconds
+    rng = np.random.default_rng(15)
+    tt = np.arange(n) / 44100.0
+    sig = 0.4 * np.sin(2 * np.pi * 440 * tt) * np.exp(-((tt % 1.0) * 2.0))
+    pcm5 = np.clip(np.stack([sig, 0.7 * sig])
+                   + 0.02 * rng.standard_normal((2, n)), -1, 1)
+    wav_in = os.path.join(work, f"in{wav_seconds}s.wav")
+    wav.write(wav_in, pcm5.astype(np.float32), 44100)
+    flag = [] if cuda else ["--device", "cpu"]
+    runs = [("atrac3_lp4", [], T3.CONTAINER_PARAMS[0])] + [
+        ("atrac3", ["--bitrate", str(br // 1024)], (br, fb, js))
+        for br, fb, js in T3.CONTAINER_PARAMS]
+    n_fr = -(-n // 1024)
+    seg = slice(1024, n_fr * 1024 - 1162 - 1024)
+    c0 = counts()
+    for codec, extra, (br, fb, js) in runs:
+        if extra:
+            assert T3.container_params_for_bitrate(
+                int(extra[1]) * 1024) == (br, fb, js), extra
+        tag = f"{codec}{'_' + extra[1] if extra else ''}"
+        out, back = (os.path.join(work, f"p15_{tag}.{e}") for e in ("oma", "wav"))
+        t0 = time.perf_counter()
+        cli.main(["-e", codec, *extra, "-i", wav_in, "-o", out, "--nostdout",
+                  *flag])
+        t_enc = time.perf_counter() - t0
+        frames_, info = oma.read(out)
+        assert info["codec"] == oma.CODEC_ATRAC3
+        assert frames_.shape == (n_fr, fb) and info["frame_size"] == fb \
+            and info["joint_stereo"] == js, (tag, frames_.shape, info)
+        cli.main(["-d", "-i", out, "-o", back, "--nostdout", *flag])
+        pcm_b, rate = audio.read(back)
+        assert rate == 44100 and pcm_b.shape == (2, n_fr * 1024 - 1162), \
+            pcm_b.shape
+        gain_db = 20 * np.log10(np.sqrt(np.mean(pcm_b[:, seg] ** 2))
+                                / np.sqrt(np.mean(pcm5[:, seg] ** 2)))
+        log(f"[15 modes] cli {' '.join(['-e', codec, *extra])}: {n_fr} frames of "
+            f"{info['frame_size']} B, joint stereo {info['joint_stereo']} "
+            f"(row {br} bit/s) in {t_enc:.2f} s; -d back: RMS {gain_db:+.3f} "
+            f"dB against the input")
+        assert abs(gain_db) < 1.0, (tag, gain_db)
+    c1 = counts()
+    assert all(c1[k] > c0[k] for k in "ABC") or not cuda, (c0, c1)
+    log(f"[15 modes] {len(runs)} CLI encodes, launches {c0} -> {c1}; phase 15 "
+        f"took {time.perf_counter() - t_phase:.1f} s | {smi}")
+
+
+def scaling_phase(smi, device=None):
+    """Phase 16: ``atracdenc_tpu_torch.scaling_bench`` at 1, 2 and 4 rank
+    processes (it asserts its byte checks); its table on log lines."""
+    from atracdenc_tpu_torch import scaling_bench
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rows = scaling_bench.run(device)
+    for line in out.getvalue().splitlines():
+        if line.strip():
+            log(f"[16 scaling] {line}")
+    assert [r["ranks"] for r in rows] == list(scaling_bench.RANKS), rows
+    log(f"[16 scaling] {json.dumps({'rows': rows})}")
+    log(f"[16 scaling] byte checks passed; phase 16 took "
+        f"{time.perf_counter() - t0:.1f} s | {smi}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -421,18 +719,6 @@ def main():
     from atracdenc_tpu_torch.ops import (at1_alloc, greedy, quant_cost,
                                          rate_control)
     from atracdenc_tpu_torch.trace_encode import capture, cuda_ms, device_kernels
-    counters = {"A": (quant_cost, "launches"), "B": (greedy, "launches"),
-                "C": (rate_control, "launches"),
-                "D": (quant_cost, "full_launches"),
-                "E": (at1_alloc, "launches"),
-                "F": (rate_control, "bisect_launches")}
-
-    def counts():
-        return {k: getattr(m, a) for k, (m, a) in counters.items()}
-
-    def zero_counts():
-        for m, a in counters.values():
-            setattr(m, a, 0)
 
     # --- 1. device
     dev = runtime.device("cuda")
@@ -484,9 +770,6 @@ def main():
                       "max_abs_err": err, "ms": ms, "plain_ms": pms,
                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         return f"bound {b_ms:.4f} ms ({b_by})"
-
-    def ulps(a, b):
-        return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
 
     (a_args, _), = calls["A"]
     err_k, vlc_k = quant_cost.quant_cost_plain(*a_args)
@@ -1043,6 +1326,10 @@ def main():
         f"{time.perf_counter() - t0:.1f} s: value {line['value']:.1f} stereo "
         f"frames/s; leg digests equal phases 6, 7 and 11; launches in its "
         f"window {c14} | {smi}")
+
+    # --- 15. every ATRAC3 mode on the card; 16. the scaling bench
+    modes_phase(dev, smi, work, pcm)
+    scaling_phase(smi)
 
     print(json.dumps({"kernels": [dict(r, launches=launches[name])
                                   for name, r in rows.items()]}))

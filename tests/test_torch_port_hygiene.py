@@ -97,11 +97,12 @@ def test_port_imports_and_encodes_without_jax():
     assert res.stdout.strip().endswith("ok")
 
 
-# the modules of the scale-out and batch slice and the bench, named so
-# that a rename cannot drop them from the import checks below
+# the modules of the scale-out and batch slice, the bench and the two
+# harnesses, named so that a rename cannot drop them from the import checks
+# below
 SCALE_OUT = ("parallel/__init__.py", "parallel/distributed.py",
              "parallel/mesh.py", "tools/transcode.py", "ops/sort.py",
-             "bench.py")
+             "bench.py", "selfcheck.py", "scaling_bench.py")
 
 
 def _imported_modules(path):
