@@ -43,15 +43,25 @@ def cuda_ms(fn, reps, warmup=1):
                                 lambda: [fn() for _ in range(reps)]) / reps
 
 
-def capture(sites, fn):
+def capture(sites, fn, outputs=False):
     """Run fn() with each (module, name, key) call site wrapped to record
-    its arguments; returns {key: [(args, kwargs), ...]}."""
+    its arguments; returns {key: [(args, kwargs), ...]}, or with
+    ``outputs`` {key: [(args, kwargs, result), ...]}.  A call made while
+    another site's call runs (a stage inside a stage) is not recorded."""
     calls = {key: [] for _, _, key in sites}
     originals = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
+    depth = [0]
     for (mod, name, key), (_, _, orig) in zip(sites, originals):
         def wrapped(*a, _orig=orig, _key=key, **kw):
-            calls[_key].append((a, kw))
-            return _orig(*a, **kw)
+            if depth[0]:
+                return _orig(*a, **kw)
+            depth[0] += 1
+            try:
+                out = _orig(*a, **kw)
+            finally:
+                depth[0] -= 1
+            calls[_key].append((a, kw, out) if outputs else (a, kw))
+            return out
         setattr(mod, name, wrapped)
     try:
         fn()

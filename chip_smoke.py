@@ -119,8 +119,23 @@ Phases (each asserts; any failure exits non-zero):
                 processes on the card (all dp; each rank warm, then 3 timed
                 calls): its table and JSON rows on log lines, the rows of
                 each configuration >= 0.999 identical to 1 rank's bytes
-``modes_phase`` and ``scaling_phase`` take their inputs as arguments, so a
-CPU rehearsal can call them at small shapes.
+ 17. triage   — the byte-identity triage on the card (``triage_phase``):
+                (a) ``atracdenc_tpu_torch.golden_check`` and ``triage_at3``
+                on the seven golden cases, the counters of A, B and C zeroed
+                just before (each launches): each case's identity and
+                first-plane histogram beside the ``cpu`` key of
+                ``identity_triage.json``, the report equal to its ``cuda``
+                key; (b) ``triage_gain`` on default_stress and js_mono: no
+                ``LOGIC`` entry, both reports equal to the ``cuda`` key;
+                (c) ``triage_at3.divergent_stages`` on every frame whose
+                CUDA bytes differ from the CPU path's (the selfcheck's
+                three ATRAC3 modes, tonal_dense, the first 4 of phase 6's
+                64 streams, cut to 2 when the CPU part would pass 60 s):
+                one line per frame with its first plane, first stage, ulp
+                gap and class, every class ``knife_edge``; and whether
+                libavcodec and the reference sources are on the machine
+``modes_phase``, ``scaling_phase`` and ``triage_phase`` take their inputs
+as arguments, so a CPU rehearsal can call them at small shapes.
 The last two lines of stdout are the card's nvidia-smi name / power limit
 (preceded by the kernels JSON line) and {"ok": true, "device": {...}}.
 
@@ -687,6 +702,120 @@ def scaling_phase(smi, device=None):
     log(f"[16 scaling] {json.dumps({'rows': rows})}")
     log(f"[16 scaling] byte checks passed; phase 16 took "
         f"{time.perf_counter() - t0:.1f} s | {smi}")
+
+
+def _probe_reference_tools():
+    """Whether libavcodec (``pkg-config --exists libavcodec``) and the
+    reference sources that ``tools/oracle/build.sh`` builds from (its ``R``
+    default) are on this machine: the inputs of ``tools/psnr_equality.py``
+    and ``tools/gen_gain_scenarios.py``."""
+    import re
+    try:
+        av = subprocess.run(["pkg-config", "--exists", "libavcodec"],
+                            timeout=30).returncode == 0
+        av = "present" if av else "absent"
+    except FileNotFoundError:
+        av = "absent (no pkg-config)"
+    with open(os.path.join(ROOT, "tools", "oracle", "build.sh")) as fp:
+        src = re.search(r"R=\$\{R:-([^}]+)\}", fp.read()).group(1)
+    ref = "present" if os.path.isdir(src) else "absent"
+    return f"libavcodec {av}; reference sources ({src}) {ref}"
+
+
+def triage_phase(dev, smi, pcm, streams=4):
+    """Phase 17: the byte-identity triage on ``dev``.
+
+    (a) ``golden_check`` and ``triage_at3`` on the seven golden cases, the
+    counters of A, B and C zeroed first: each case's identity and
+    first-plane histogram beside the ``cpu`` key of ``identity_triage.json``,
+    the report equal to the key of the device type; (b) ``triage_gain`` on
+    default_stress and js_mono: no ``LOGIC`` entry, reports equal to the
+    key; (c) ``triage_at3.divergent_stages`` on every frame whose bytes on
+    ``dev`` differ from the CPU path's: the selfcheck's three ATRAC3 modes
+    on its corpus (a mode has divergent frames exactly when its ``cuda``
+    and ``cpu`` hashes differ), tonal_dense, and the first ``streams`` of
+    the batch ``pcm`` [S, 2, T] in the default mode (the device encodes all
+    S streams, as phase 6; cut to 2 streams when the CPU part of the first
+    2 takes over 30 s).  One line per frame; every frame a ``knife_edge``."""
+    from collections import Counter
+    from atracdenc_tpu_torch import (golden_check, selfcheck, triage_at3,
+                                     triage_gain)
+    t_phase = time.perf_counter()
+    with open(triage_at3.KEY_FILE) as fp:
+        key = json.load(fp)
+    want = key.get(dev.type, {})
+
+    # (a) the golden identities and first planes
+    zero_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as gc_out:
+        golden_check.main(["--device", dev.type])
+    report = json.loads(json.dumps(triage_at3.triage(dev.type,
+                                                     log=lambda *a: None)))
+    c17 = counts()
+    for line in gc_out.getvalue().splitlines():
+        log(f"[17 triage] golden_check: {line}")
+    for name, r in report.items():
+        cp = key["cpu"]["triage_at3"][name]
+        log(f"[17 triage] {name}: {dev.type} identity {r['identity']!r}, "
+            f"{r['divergent']}/{r['frames']} frames divergent, first planes "
+            f"{r['first_plane']}; cpu {cp['identity']!r}, {cp['divergent']}/"
+            f"{cp['frames']}, {cp['first_plane']}")
+    log(f"[17 triage] triage_at3 against the stored {dev.type!r} key: "
+        f"{'equal' if report == want.get('triage_at3') else 'DIFFERENT'}; "
+        f"launches {c17} | {smi}")
+    assert all(c17[k] > 0 for k in "ABC") or dev.type == "cpu", c17
+    assert report == want.get("triage_at3"), report
+
+    # (b) the gain divergences: noise or LOGIC
+    for name, tag in (("default_stress", "stress"), ("js_mono", "js_mono")):
+        rep = json.loads(json.dumps(triage_gain.triage(name, dev.type,
+                                                       log=lambda *a: None)))
+        classes = dict(Counter(r["class"] for r in rep))
+        log(f"[17 triage] triage_gain {name} on {dev.type}: {len(rep)} "
+            f"divergent (frame, ch, band) entries, classes {classes}; cpu key "
+            f"{len(key['cpu'][f'gain_triage_{tag}'])}; stored {dev.type!r} "
+            f"key {'equal' if rep == want.get(f'gain_triage_{tag}') else 'DIFFERENT'}")
+        assert classes.get("LOGIC", 0) == 0, rep
+        assert rep == want.get(f"gain_triage_{tag}"), rep
+
+    # (c) the frames by which this device's bytes differ from the CPU path's
+    log(f"[17 triage] probe: {_probe_reference_tools()}")
+    with open(selfcheck.HASH_FILE) as fp:
+        hashes = json.load(fp)
+    found = []
+    for mode in ("at3_full", "at3_plain", "at3_js"):
+        rows = triage_at3.divergent_stages(selfcheck.corpus(),
+                                           selfcheck.AT3_MODES[mode],
+                                           device=dev.type)
+        expect = hashes.get(dev.type, {}).get(mode) != hashes["cpu"][mode]
+        assert bool(rows) == expect, (mode, rows, expect)
+        found += [(f"selfcheck {mode}", e) for e in rows]
+    c = golden_check.case("tonal_dense")
+    found += [("tonal_dense", e) for e in triage_at3.divergent_stages(
+        golden_check.load(c)[0], c[4], device=dev.type)]
+    default = dict(frame_bytes=384, no_gain_control=False, no_tonal=False)
+    t0 = time.perf_counter()
+    rows = triage_at3.divergent_stages(pcm, default, device=dev.type,
+                                       streams=(0, 2))
+    if time.perf_counter() - t0 <= 30.0 and streams > 2:
+        rows += triage_at3.divergent_stages(pcm, default, device=dev.type,
+                                            streams=(2, streams))
+    else:
+        streams = 2
+    found += [(f"bench {pcm.shape[0]} x {pcm.shape[2] // 1024}", e)
+              for e in rows]
+    for mode, e in found:
+        log(f"[17 triage] {mode} stream {e['stream']} frame {e['frame']}: "
+            f"first plane {e['first_plane']}, first stage {e['stage']} "
+            f"{e['outputs']}, ulp gap {e['ulp']} ({e['input']}; "
+            f"{e['peak_ulp']!r} of the spacing at its peak), integer inputs "
+            f"that differ {e['int_inputs']}, upstream output gaps in "
+            f"spacings at their peak {e['upstream']}, class {e['class']}")
+    classes = dict(Counter(e["class"] for _, e in found))
+    log(f"[17 triage] {len(found)} frames where {dev.type} differs from the "
+        f"CPU path (the bench batch's first {streams} streams), classes "
+        f"{classes}; phase 17 took {time.perf_counter() - t_phase:.1f} s | {smi}")
+    assert all(e["class"] == "knife_edge" for _, e in found), found
 
 
 def main():
@@ -1330,6 +1459,9 @@ def main():
     # --- 15. every ATRAC3 mode on the card; 16. the scaling bench
     modes_phase(dev, smi, work, pcm)
     scaling_phase(smi)
+
+    # --- 17. the byte-identity triage on the card
+    triage_phase(dev, smi, pcm)
 
     print(json.dumps({"kernels": [dict(r, launches=launches[name])
                                   for name, r in rows.items()]}))

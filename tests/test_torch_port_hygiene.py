@@ -97,12 +97,13 @@ def test_port_imports_and_encodes_without_jax():
     assert res.stdout.strip().endswith("ok")
 
 
-# the modules of the scale-out and batch slice, the bench and the two
+# the modules of the scale-out and batch slice, the bench and the
 # harnesses, named so that a rename cannot drop them from the import checks
 # below
 SCALE_OUT = ("parallel/__init__.py", "parallel/distributed.py",
              "parallel/mesh.py", "tools/transcode.py", "ops/sort.py",
-             "bench.py", "selfcheck.py", "scaling_bench.py")
+             "bench.py", "selfcheck.py", "scaling_bench.py",
+             "golden_check.py", "triage_at3.py", "triage_gain.py")
 
 
 def _imported_modules(path):
