@@ -57,6 +57,7 @@ reports ``"platform": "cpu"``, and is a liveness check, not a measurement.
 A failure in any leg fails the run.
 """
 import argparse
+import functools
 import hashlib
 import json
 import statistics
@@ -127,8 +128,8 @@ def device_seconds(dev, fn):
     return time.perf_counter() - t0
 
 
-def pipelined(dev, fn, x, n_items, expect):
-    """A window of PIPELINE_CALLS calls of fn(x) with up to PIPELINE_DEPTH in
+def pipelined(dev, fn, x, n_items, expect, calls=PIPELINE_CALLS):
+    """A window of ``calls`` calls of fn(x) with up to PIPELINE_DEPTH in
     flight -> items/s on the host clock, every byte on the host inside it
     (bench.py:35-65).  ``expect``: fn(x)'s bytes on the host, which the
     last call's copy must equal."""
@@ -142,7 +143,7 @@ def pipelined(dev, fn, x, n_items, expect):
         if cuda:
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        for i in range(PIPELINE_CALLS):
+        for i in range(calls):
             y = fn(x)
             slot = i % PIPELINE_DEPTH
             if copied[slot] is not None:
@@ -160,9 +161,9 @@ def pipelined(dev, fn, x, n_items, expect):
             if ev is not None:
                 ev.synchronize()
         dt = time.perf_counter() - t0
-        assert torch.equal(bufs[(PIPELINE_CALLS - 1) % PIPELINE_DEPTH],
+        assert torch.equal(bufs[(calls - 1) % PIPELINE_DEPTH],
                            expect), "pipelined bytes differ from the checked ones"
-        return n_items * PIPELINE_CALLS / dt
+        return n_items * calls / dt
     return window
 
 
@@ -194,23 +195,36 @@ def sha256(t):
     return hashlib.sha256(runtime.to_numpy(t).tobytes()).hexdigest()
 
 
-def at3_leg(dev, x):
-    """The ATRAC3 windows, after checking the bytes of both routes."""
-    n = x.shape[0] * x.shape[2] // 1024
+def at3_encode(x, use_rate_kernel=True, fused_memo=False):
+    """The ATRAC3 leg's call: x [S, 2, T] -> [S, F, 384] bytes, encode and
+    device packer in the default mode, on the route the options name."""
+    return at3_encoder.encode_frames_bytes(
+        x, use_rate_kernel=use_rate_kernel, fused_memo=fused_memo,
+        **AT3_DEFAULT)
 
-    def route(rate_kernel, fused=False):
-        return lambda xx: at3_encoder.encode_frames_bytes(
-            xx, use_rate_kernel=rate_kernel, fused_memo=fused, **AT3_DEFAULT)
-    kernel, tensor_ops, fused = route(True), route(False), route(True, True)
-    frames = kernel(x)
-    assert torch.equal(tensor_ops(x), frames), \
-        "ATRAC3: kernel C and the tensor-op rate path give other bytes"
-    planes = at3_encoder.encode_frames(x, **AT3_DEFAULT)
+
+def check_at3(x, frames, **route):
+    """Assert that ``frames`` (``at3_encode(x, **route)``) are the device
+    packer's bytes of the route's planes, and that stream 0's equal
+    ``frame.pack``'s."""
+    planes = at3_encoder.encode_frames(x, **route, **AT3_DEFAULT)
     assert torch.equal(at3_pack.pack_device_batch(planes, 384), frames)
     host0 = at3_frame.pack({k: runtime.to_numpy(v[0])
                             for k, v in planes.items()}, 384)
     assert np.array_equal(host0, runtime.to_numpy(frames[0])), \
         "ATRAC3: stream 0's device bytes differ from frame.pack"
+
+
+def at3_leg(dev, x):
+    """The ATRAC3 windows, after checking the bytes of both routes."""
+    n = x.shape[0] * x.shape[2] // 1024
+    kernel = at3_encode
+    tensor_ops = functools.partial(at3_encode, use_rate_kernel=False)
+    fused = functools.partial(at3_encode, fused_memo=True)
+    frames = kernel(x)
+    assert torch.equal(tensor_ops(x), frames), \
+        "ATRAC3: kernel C and the tensor-op rate path give other bytes"
+    check_at3(x, frames)
     fused_frames = fused(x)
     ident = float((fused_frames == frames).double().mean())
     assert ident >= 0.999, f"ATRAC3 fused memo: byte identity {ident}"
@@ -223,22 +237,39 @@ def at3_leg(dev, x):
     return windows, sha256(frames), [x.shape[0], x.shape[2] // 1024]
 
 
-def at1_leg(dev, x1):
-    """The ATRAC1 windows, after checking stream 0 against frame.pack."""
-    def encode(xx):
-        return at1_pack.pack_device(at1_units(at1_encoder.encode_frames(xx)))
+def at1_encode(x1, use_rate_kernel=True):
+    """The ATRAC1 leg's call: x1 [S, 2, T] -> [S * F * 2, 212] sound units,
+    encode and device packer, kernel E (or ``bitalloc.allocate`` with
+    ``use_rate_kernel=False``) in the rate control."""
+    return at1_pack.pack_device(at1_units(at1_encoder.encode_frames(
+        x1, use_rate_kernel=use_rate_kernel)))
+
+
+def check_at1(x1, units, **route):
+    """Assert that ``units`` (``at1_encode(x1, **route)``) are the device
+    packer's bytes of the route's planes, and that stream 0's equal
+    ``frame.pack``'s."""
     n = x1.shape[0] * 2 * (x1.shape[2] // 512)
-    planes = at1_units(at1_encoder.encode_frames(x1))
-    units = at1_pack.pack_device(planes)
     assert units.shape == (n, 212), units.shape
+    planes = at1_units(at1_encoder.encode_frames(x1, **route))
+    assert torch.equal(at1_pack.pack_device(planes), units)
     per_stream = n // x1.shape[0]
     host0 = at1_frame.pack({k: runtime.to_numpy(v[:per_stream])
                             for k, v in planes.items()})
     assert np.array_equal(host0, runtime.to_numpy(units[:per_stream])), \
         "ATRAC1: stream 0's device bytes differ from frame.pack"
-    windows = {"atrac1_units_per_s": pipelined(dev, encode, x1, n, units.cpu()),
-               "at1_units_per_s_compute_only": compute_only(dev, encode, x1, n)}
-    return windows, sha256(units), [x1.shape[0], per_stream]
+
+
+def at1_leg(dev, x1):
+    """The ATRAC1 windows, after checking stream 0 against frame.pack."""
+    n = x1.shape[0] * 2 * (x1.shape[2] // 512)
+    units = at1_encode(x1)
+    check_at1(x1, units)
+    windows = {"atrac1_units_per_s": pipelined(dev, at1_encode, x1, n,
+                                               units.cpu()),
+               "at1_units_per_s_compute_only": compute_only(dev, at1_encode,
+                                                            x1, n)}
+    return windows, sha256(units), [x1.shape[0], n // x1.shape[0]]
 
 
 def at3p_leg(dev, x3p):

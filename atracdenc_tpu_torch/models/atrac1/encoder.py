@@ -20,7 +20,7 @@ from atracdenc_tpu_torch import runtime
 from atracdenc_tpu_torch.ops import psy, scale as scale_ops
 from atracdenc_tpu_torch.ops.at1_alloc import at1_allocate_block
 from atracdenc_tpu_torch.ops.transient import transient_mask
-from . import filterbank
+from . import bitalloc, filterbank
 from .mdct import mdct_frames
 
 CHUNK_LEFT = 3    # context frames: QMF-tree FIR reach (~140 samples) +
@@ -76,9 +76,10 @@ def _fixed_masks(window_mask, shape, dev):
     return m.expand(shape + (3,))
 
 
-def _encode_specs(specs, masks, loud_init, bfu_idx_const):
+def _encode_specs(specs, masks, loud_init, bfu_idx_const, use_rate_kernel):
     """Spectra [..., C, F, 512] and window masks [..., C, F, 3] -> (planes,
-    raw loudness track [..., F]): the loudness IIR, scaling, kernel E and
+    raw loudness track [..., F]): the loudness IIR, scaling, rate control
+    (kernel E, or ``bitalloc.allocate`` with ``use_rate_kernel=False``) and
     the mantissas."""
     k = _consts(specs.device)
     c = specs.shape[-3]
@@ -100,8 +101,9 @@ def _encode_specs(specs, masks, loud_init, bfu_idx_const):
 
     blocks = gather_bfu_blocks(specs, masks)                  # [..., 52, 20]
     sfi, scaled, energy = scale_ops.scale_blocks(blocks, k["mask"], k["scale"])
-    bfu_idx, wordlen = at1_allocate_block(sfi, energy, masks, loudness,
-                                          bfu_idx_const=bfu_idx_const)
+    alloc = at1_allocate_block if use_rate_kernel else bitalloc.allocate
+    bfu_idx, wordlen = alloc(sfi, energy, masks, loudness,
+                             bfu_idx_const=bfu_idx_const)
     mant = scale_ops.quant_mantissas(scaled, wordlen)
     # operator feedback: |spec| > 1 is where the reference clamps and warns
     # (atrac_scale.cpp:150-167); counted here instead of printed per value
@@ -118,10 +120,15 @@ def _encode_specs(specs, masks, loud_init, bfu_idx_const):
     return planes, loud
 
 
-def encode_frames(pcm, bfu_idx_const=0, window_mode="auto", window_mask=0):
+def encode_frames(pcm, bfu_idx_const=0, window_mode="auto", window_mask=0,
+                  use_rate_kernel=True):
     """[..., C, T] PCM (T a multiple of 512) -> frame planes: short_mask
     [..., C, F, 3] bool, bfu_idx [..., C, F], wordlen / sfi [..., C, F, 52],
-    mant [..., C, F, 52, 20] (int32), clip_count / clip_max [..., C, F]."""
+    mant [..., C, F, 52, 20] (int32), clip_count / clip_max [..., C, F].
+
+    ``use_rate_kernel=False`` runs the rate control as tensor ops
+    (``bitalloc.allocate``, the JAX package's ``use_pallas=False`` XLA path)
+    on the tensors' device instead of kernel E; the bytes are the same."""
     lead = pcm.shape[:-1]
     f = pcm.shape[-1] // T.NUM_SAMPLES
     low, mid, hi = filterbank.analysis(pcm)
@@ -136,12 +143,13 @@ def encode_frames(pcm, bfu_idx_const=0, window_mode="auto", window_mask=0):
         mdct_frames(mid.reshape(lead + (f, 128)), masks[..., 1], 1),
         mdct_frames(hi.reshape(lead + (f, 256)), masks[..., 2], 2),
     ], dim=-1)                                                # [..., C, F, 512]
-    planes, _ = _encode_specs(specs, masks, T.LOUD_FACTOR, bfu_idx_const)
+    planes, _ = _encode_specs(specs, masks, T.LOUD_FACTOR, bfu_idx_const,
+                              use_rate_kernel)
     return planes
 
 
 def _encode_window(pcm_ext, loud_init, bfu_idx_const, window_mode,
-                   window_mask, first):
+                   window_mask, first, use_rate_kernel=True):
     """Chunk core: pcm_ext [..., C, (CHUNK_LEFT + f + 1) * 512] -> (planes
     of the f content frames, raw loudness carry [...]).  The context frames
     pin the filterbank, transient and MDCT couplings; the loudness IIR
@@ -178,7 +186,8 @@ def _encode_window(pcm_ext, loud_init, bfu_idx_const, window_mode,
 
     specs = torch.cat([band_specs(low, 128, 0, 0), band_specs(mid, 128, 1, 1),
                        band_specs(hi, 256, 2, 2)], dim=-1)
-    planes, loud = _encode_specs(specs, masks, loud_init, bfu_idx_const)
+    planes, loud = _encode_specs(specs, masks, loud_init, bfu_idx_const,
+                                 use_rate_kernel)
     return planes, loud[..., -1]
 
 

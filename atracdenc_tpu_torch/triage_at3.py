@@ -20,8 +20,8 @@ It prints the per-case histogram of first planes and one exemplar frame
 per plane.  ``--update`` stores this report and both ``triage_gain``
 reports under the device's key of ``identity_triage.json`` beside this
 file (``cpu`` equals the JAX tools' reports in ``tests/golden/``; ``cuda``
-was taken on an H100).  The device is CUDA unless ``--device cpu`` is given
-(no CPU fallback).
+was taken on an H100), keeping the key's other entries (``triage_at1``'s).
+The device is CUDA unless ``--device cpu`` is given (no CPU fallback).
 
 ``divergent_stages`` / ``first_diverging_stage`` go one level further for
 the bytes by which two devices differ (CUDA against the CPU path): they run
@@ -354,7 +354,7 @@ def main(argv=None):
         if os.path.exists(KEY_FILE):
             with open(KEY_FILE) as fp:
                 stored = json.load(fp)
-        stored[dev.type] = key
+        stored.setdefault(dev.type, {}).update(key)
         with open(KEY_FILE, "w") as fp:
             json.dump(stored, fp, indent=1)
             fp.write("\n")

@@ -133,9 +133,26 @@ Phases (each asserts; any failure exits non-zero):
                 64 streams, cut to 2 when the CPU part would pass 60 s):
                 one line per frame with its first plane, first stage, ulp
                 gap and class, every class ``knife_edge``; and whether
-                libavcodec and the reference sources are on the machine
-``modes_phase``, ``scaling_phase`` and ``triage_phase`` take their inputs
-as arguments, so a CPU rehearsal can call them at small shapes.
+                libavcodec and the reference sources are on the machine;
+                (d) ``triage_at1.triage`` on at1_golden and at1_stress_pcm
+                (whole tracks, E's counter zeroed first, E launches): one
+                line per sound unit whose CUDA bytes differ from the CPU
+                path's, with its channel, frame, first plane, first stage,
+                ulp gap and class, every class ``knife_edge``, the report
+                equal to the ``triage_at1`` entry of the ``cuda`` key
+ 18. sweeps   — the batch-shape sweeps and the perf campaign at short grids
+                (``sweeps_phase``): ``sweep_at3_batch --pallas`` at 32x256,
+                64x256, 128x256, 64x512 (A, B, C launched);
+                ``sweep_at1_batch`` at 8x512, 32x512, 128x512 on both rate
+                routes (E launched on the kernel route, not on the tensor-op
+                route); ``perf_campaign --seconds 12 --streams 16,64``.
+                Every point's bytes checked before they were timed, rows
+                with peak device memory and SHA-256 on log lines; ATRAC1's
+                two routes give equal bytes at every point; 64x256 gives
+                phase 6's bytes and ATRAC1 8x512 phase 7's
+``modes_phase``, ``scaling_phase``, ``triage_phase`` and ``sweeps_phase``
+take their inputs as arguments, so a CPU rehearsal can call them at small
+shapes.
 The last two lines of stdout are the card's nvidia-smi name / power limit
 (preceded by the kernels JSON line) and {"ok": true, "device": {...}}.
 
@@ -736,10 +753,13 @@ def triage_phase(dev, smi, pcm, streams=4):
     and ``cpu`` hashes differ), tonal_dense, and the first ``streams`` of
     the batch ``pcm`` [S, 2, T] in the default mode (the device encodes all
     S streams, as phase 6; cut to 2 streams when the CPU part of the first
-    2 takes over 30 s).  One line per frame; every frame a ``knife_edge``."""
+    2 takes over 30 s).  One line per frame; every frame a ``knife_edge``.
+    (d) ``triage_at1.triage`` on the two ATRAC1 goldens: one line per unit
+    whose bytes on ``dev`` differ from the CPU path's, every one a
+    ``knife_edge``, the report equal to the key's ``triage_at1`` entry."""
     from collections import Counter
-    from atracdenc_tpu_torch import (golden_check, selfcheck, triage_at3,
-                                     triage_gain)
+    from atracdenc_tpu_torch import (golden_check, selfcheck, triage_at1,
+                                     triage_at3, triage_gain)
     t_phase = time.perf_counter()
     with open(triage_at3.KEY_FILE) as fp:
         key = json.load(fp)
@@ -814,8 +834,101 @@ def triage_phase(dev, smi, pcm, streams=4):
     classes = dict(Counter(e["class"] for _, e in found))
     log(f"[17 triage] {len(found)} frames where {dev.type} differs from the "
         f"CPU path (the bench batch's first {streams} streams), classes "
-        f"{classes}; phase 17 took {time.perf_counter() - t_phase:.1f} s | {smi}")
+        f"{classes}")
     assert all(e["class"] == "knife_edge" for _, e in found), found
+
+    # (d) the ATRAC1 units by which this device's bytes differ from the CPU
+    # path's: the two ATRAC1 goldens, whole tracks, E's counter zeroed first
+    zero_counts()
+    rep1 = triage_at1.triage(dev.type,
+                             log=lambda line: log(f"[17 triage] at1 {line}"))
+    e17 = counts()["E"]
+    units = [e for r in rep1.values() for e in r["vs_cpu"]]
+    classes1 = dict(Counter(e["class"] for e in units))
+    log(f"[17 triage] triage_at1 on {dev.type}: {len(units)} units differ "
+        f"from the CPU path, classes {classes1}; identities "
+        + ", ".join(f"{n} {r['identity']!r} (cpu {key['cpu']['triage_at1'][n]['identity']!r})"
+                    for n, r in rep1.items())
+        + f"; stored {dev.type!r} key "
+        f"{'equal' if rep1 == want.get('triage_at1') else 'DIFFERENT'}; "
+        f"E launches {e17}")
+    assert e17 > 0 or dev.type == "cpu", e17
+    assert all(e["class"] == "knife_edge" for e in units), units
+    assert rep1 == want.get("triage_at1"), rep1
+    log(f"[17 triage] phase 17 took {time.perf_counter() - t_phase:.1f} s | "
+        f"{smi}")
+
+
+SWEEP_GRIDS = {"at3": "32x256,64x256,128x256,64x512",
+               "at1": "8x512,32x512,128x512",
+               "campaign": ["--seconds", "12", "--streams", "16,64"]}
+
+
+def sweeps_phase(dev, smi, at3_digest, at1_digest, grids=SWEEP_GRIDS,
+                 repeats=2, iters=2):
+    """Phase 18: the batch-shape sweeps and the perf campaign on ``dev``
+    at short grids, ``repeats`` windows of ``iters`` calls a point: the
+    ATRAC3 sweep on the kernel route (A, B, C launched), the ATRAC1 sweep on
+    both routes (E launched on the kernel route only), the campaign.  Every
+    row's bytes checked before they were timed; ATRAC1's two routes give
+    the same bytes at every point; the points at the bench's shapes give
+    phase 6's (ATRAC3 64 x 256, ``at3_digest``) and phase 7's (ATRAC1 8 x
+    512, ``at1_digest``) bytes."""
+    from atracdenc_tpu_torch import (bench, perf_campaign, sweep_at1_batch,
+                                     sweep_at3_batch)
+    t_phase = time.perf_counter()
+    common = ["--device", dev.type, "--repeats", str(repeats), "--iters",
+              str(iters)]
+
+    checks = []
+
+    def counted(check):
+        def wrapped(*a, **kw):
+            checks.append(check.__name__)
+            return check(*a, **kw)
+        return wrapped
+
+    def run(tool, args):
+        zero_counts()
+        saved = bench.check_at3, bench.check_at1
+        bench.check_at3, bench.check_at1 = map(counted, saved)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                line = tool.main(common + args)
+        finally:
+            bench.check_at3, bench.check_at1 = saved
+        for text in out.getvalue().splitlines()[:-1]:
+            log(f"[18 sweeps] {tool.__name__.rsplit('.', 1)[1]}: {text}")
+        log(f"[18 sweeps] {json.dumps(line)}")
+        return line, counts()
+
+    at3, c3 = run(sweep_at3_batch, ["--grid", grids["at3"], "--pallas"])
+    at1 = {k: run(sweep_at1_batch, ["--grid", grids["at1"]]
+                  + (["--pallas"] if k else [])) for k in (True, False)}
+    camp, _ = run(perf_campaign, grids["campaign"])
+    rows = at3["rows"] + at1[True][0]["rows"] + at1[False][0]["rows"] + \
+        list(camp["at3"].values()) + list(camp["at1"].values())
+    assert all(r["status"] == "ok" for r in rows), rows
+    assert len(checks) == len(rows), (len(checks), len(rows))   # one a point
+    by_shape = {(r["streams"], r["frames"]): r["sha256"] for r in at3["rows"]}
+    for kern, ten in zip(at1[True][0]["rows"], at1[False][0]["rows"]):
+        assert kern["sha256"] == ten["sha256"], (kern, ten)
+    at1_shapes = {(r["streams"], r["frames"]): r["sha256"]
+                  for r in at1[False][0]["rows"]}
+    if (64, 256) in by_shape:
+        assert by_shape[(64, 256)] == at3_digest, by_shape
+    if (8, 512) in at1_shapes:
+        assert at1_shapes[(8, 512)] == at1_digest, at1_shapes
+    cuda = dev.type == "cuda"
+    assert not cuda or all(c3[k] > 0 for k in "ABC"), c3
+    assert not cuda or at1[True][1]["E"] > 0, at1[True][1]
+    assert at1[False][1]["E"] == 0, at1[False][1]
+    log(f"[18 sweeps] {len(rows)} points, {len(checks)} byte checks "
+        f"({checks.count('check_at3')} ATRAC3, {checks.count('check_at1')} "
+        f"ATRAC1) before the windows; ATRAC1 routes "
+        f"equal at {len(at1_shapes)} points; launches ATRAC3 {c3}, ATRAC1 "
+        f"kernel route {at1[True][1]}, tensor-op route {at1[False][1]}; "
+        f"phase 18 took {time.perf_counter() - t_phase:.1f} s | {smi}")
 
 
 def main():
@@ -1460,8 +1573,9 @@ def main():
     modes_phase(dev, smi, work, pcm)
     scaling_phase(smi)
 
-    # --- 17. the byte-identity triage on the card
+    # --- 17. the byte-identity triage on the card; 18. the sweeps
     triage_phase(dev, smi, pcm)
+    sweeps_phase(dev, smi, digest(fr_dev), digest(units_host))
 
     print(json.dumps({"kernels": [dict(r, launches=launches[name])
                                   for name, r in rows.items()]}))

@@ -103,7 +103,9 @@ def test_port_imports_and_encodes_without_jax():
 SCALE_OUT = ("parallel/__init__.py", "parallel/distributed.py",
              "parallel/mesh.py", "tools/transcode.py", "ops/sort.py",
              "bench.py", "selfcheck.py", "scaling_bench.py",
-             "golden_check.py", "triage_at3.py", "triage_gain.py")
+             "golden_check.py", "triage_at3.py", "triage_gain.py",
+             "triage_at1.py", "sweep_at3_batch.py", "sweep_at1_batch.py",
+             "perf_campaign.py")
 
 
 def _imported_modules(path):

@@ -92,14 +92,17 @@ def test_triage_gain_equals_the_jax_report(encodes, name):
 
 
 def test_identity_triage_key_file():
-    """``cpu`` holds the JAX tools' committed reports; ``cuda`` (taken on an
-    H100) has the same layout and cases."""
+    """``cpu`` holds the JAX tools' committed reports (and ``triage_at1``'s
+    ATRAC1 report, held by tests/test_torch_triage_at1.py); ``cuda`` (taken
+    on an H100) has the same layout and cases."""
     with open(triage_at3.KEY_FILE) as fp:
         key = json.load(fp)
     assert set(key) == {"cpu", "cuda"}
-    assert key["cpu"] == {"triage_at3": golden_json("at3_triage.json"),
-                          "gain_triage_stress": golden_json(GAIN_FILES["default_stress"]),
-                          "gain_triage_js_mono": golden_json(GAIN_FILES["js_mono"])}
+    assert {k: v for k, v in key["cpu"].items() if k != "triage_at1"} == {
+        "triage_at3": golden_json("at3_triage.json"),
+        "gain_triage_stress": golden_json(GAIN_FILES["default_stress"]),
+        "gain_triage_js_mono": golden_json(GAIN_FILES["js_mono"])}
+    assert "triage_at1" in key["cpu"]
     assert set(key["cuda"]) == set(key["cpu"])
     assert list(key["cuda"]["triage_at3"]) == CASE_NAMES
     for entries in (key["cuda"]["gain_triage_stress"],
@@ -253,14 +256,16 @@ def test_main_writes_the_report(encodes, tmp_path, capsys, tool):
 
 
 def test_update_stores_the_device_key(tmp_path, monkeypatch):
-    """--update replaces the device's key and keeps the others."""
+    """--update replaces its entries of the device's key and keeps the
+    key's other entries (``triage_at1``'s) and the other keys."""
     path = tmp_path / "identity_triage.json"
-    path.write_text(json.dumps({"cpu": {}, "cuda": {"kept": 1}}))
+    path.write_text(json.dumps({"cpu": {"new": 0, "triage_at1": 2},
+                                "cuda": {"kept": 1}}))
     monkeypatch.setattr(triage_at3, "KEY_FILE", str(path))
     monkeypatch.setattr(triage_at3, "identity_key", lambda dev: {"new": dev})
     assert triage_at3.main(["--device", "cpu", "--update"]) == 0
-    assert json.loads(path.read_text()) == {"cpu": {"new": "cpu"},
-                                            "cuda": {"kept": 1}}
+    assert json.loads(path.read_text()) == {
+        "cpu": {"new": "cpu", "triage_at1": 2}, "cuda": {"kept": 1}}
 
 
 def test_chip_smoke_probe_reads_the_oracle_build_script():
