@@ -20,6 +20,7 @@ import functools
 import numpy as np
 import torch
 
+from atracdenc_tpu_torch import runtime
 from atracdenc_tpu_torch.models.atrac1 import tables as T
 from atracdenc_tpu_torch.ops import psy
 
@@ -170,7 +171,7 @@ def _apply_boost(wl, bfu_num):
         return surplus, changed
 
     surplus, changed = one_pass(surplus)
-    while bool(torch.any(changed & (surplus >= BOOST_MIN_KEY))):
+    while runtime.host_bool(torch.any(changed & (surplus >= BOOST_MIN_KEY))):
         surplus, changed = one_pass(surplus)
     return wl
 
@@ -197,7 +198,7 @@ def allocate(sfi, energy, short_flags, loudness, bfu_idx_const=0):
         used_idx = torch.sum(amount < (last_nz + 1)[..., None], dim=-1,
                              dtype=torch.int32)
         repeat = used_idx < bfu_idx
-        if not bool(torch.any(repeat)):
+        if not runtime.host_bool(torch.any(repeat)):
             break                       # a round that repeats nothing is a fixed point
         bfu_idx = torch.where(repeat, bfu_idx - 1, bfu_idx)
         new_wl = _bisect(sfi, energy, short_flags, loudness,

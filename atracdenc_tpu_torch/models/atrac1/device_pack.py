@@ -9,6 +9,7 @@ units by ``ops/bitdeposit.deposit_fields``.  Layout per the reference writer
 """
 import torch
 
+from atracdenc_tpu_torch import runtime, trace
 from atracdenc_tpu_torch.models.atrac1 import tables as T
 from atracdenc_tpu_torch.ops.bitdeposit import deposit_fields
 
@@ -17,6 +18,7 @@ __all__ = ["pack_device"]
 _HEADER_WIDTHS = (2, 2, 2, 2, 3, 2, 3)
 
 
+@trace.span("at1.pack")
 def pack_device(planes):
     """Planes with one merged frame axis (channel-interleaved, as
     ``frame.pack`` takes them): short_mask [N, 3], bfu_idx [N], wordlen /
@@ -28,26 +30,28 @@ def pack_device(planes):
     sfi = planes["sfi"].to(i64)
     mant = planes["mant"].to(i64)
     n, dev = bfu_idx.shape[0], bfu_idx.device
-    bfu_num = torch.as_tensor(T.BFU_AMOUNT_TAB, device=dev).to(i64)[bfu_idx]
+    bfu_num = runtime.from_host(T.BFU_AMOUNT_TAB, dev).to(i64)[bfu_idx]
     in_use = torch.arange(T.MAX_BFUS, device=dev)[None, :] < bfu_num[:, None]
     zero = torch.zeros(n, dtype=i64, device=dev)
 
     head_v = torch.stack([
         torch.where(short[:, 0], 0, 2), torch.where(short[:, 1], 0, 2),
         torch.where(short[:, 2], 0, 3), zero, bfu_idx, zero, zero], dim=1)
-    head_w = torch.as_tensor(_HEADER_WIDTHS, device=dev).expand(n, -1)
+    head_w = runtime.from_host(_HEADER_WIDTHS, dev).expand(n, -1)
 
     wl_v = torch.where(wl > 0, wl - 1, 0)
     wl_w = torch.where(in_use, 4, 0)
     sfi_w = torch.where(in_use, 6, 0)
 
-    spec_valid = torch.as_tensor(T.GATHER_MASK, device=dev)[None]
+    spec_valid = runtime.from_host(T.GATHER_MASK, dev)[None]
     mant_w = torch.where(spec_valid & (wl >= 2)[:, :, None]
                          & in_use[:, :, None], wl[:, :, None], 0)
     # two's-complement truncation to the field width (int64: wl <= 16)
     mant_v = mant & ((1 << torch.clamp(mant_w, min=1)) - 1)
 
-    values = torch.cat([head_v, wl_v, sfi, mant_v.reshape(n, -1)], 1)
-    widths = torch.cat([head_w, wl_w, sfi_w, mant_w.reshape(n, -1)], 1)
-    offsets = torch.cumsum(widths, -1) - widths
+    with trace.span("field_cat"):
+        values = torch.cat([head_v, wl_v, sfi, mant_v.reshape(n, -1)], 1)
+        widths = torch.cat([head_w, wl_w, sfi_w, mant_w.reshape(n, -1)], 1)
+    with trace.span("offset_scan"):
+        offsets = torch.cumsum(widths, -1) - widths
     return deposit_fields(values, widths, offsets, T.SOUND_UNIT_SIZE)

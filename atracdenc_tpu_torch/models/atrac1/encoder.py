@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from atracdenc_tpu_torch.models.atrac1 import tables as T
-from atracdenc_tpu_torch import runtime
+from atracdenc_tpu_torch import runtime, trace
 from atracdenc_tpu_torch.ops import psy, scale as scale_ops
 from atracdenc_tpu_torch.ops.at1_alloc import at1_allocate_block
 from atracdenc_tpu_torch.ops.transient import transient_mask
@@ -59,6 +59,7 @@ def _blocks_static(specs, start_tab):
     return torch.stack(parts, dim=-2)
 
 
+@trace.span("bfu_gather")
 def gather_bfu_blocks(specs, short_flags):
     """[..., 512] spectra -> padded BFU blocks [..., 52, 20]; short_flags
     [..., 3] bool per band selects the short or long line layout
@@ -71,8 +72,8 @@ def gather_bfu_blocks(specs, short_flags):
 
 
 def _fixed_masks(window_mask, shape, dev):
-    m = torch.tensor([bool(window_mask & 1), bool(window_mask & 2),
-                      bool(window_mask & 4)], device=dev)
+    m = runtime.from_host([bool(window_mask & 1), bool(window_mask & 2),
+                           bool(window_mask & 4)], dev)
     return m.expand(shape + (3,))
 
 
@@ -102,8 +103,9 @@ def _encode_specs(specs, masks, loud_init, bfu_idx_const, use_rate_kernel):
     blocks = gather_bfu_blocks(specs, masks)                  # [..., 52, 20]
     sfi, scaled, energy = scale_ops.scale_blocks(blocks, k["mask"], k["scale"])
     alloc = at1_allocate_block if use_rate_kernel else bitalloc.allocate
-    bfu_idx, wordlen = alloc(sfi, energy, masks, loudness,
-                             bfu_idx_const=bfu_idx_const)
+    with trace.span("rate_control"):
+        bfu_idx, wordlen = alloc(sfi, energy, masks, loudness,
+                                 bfu_idx_const=bfu_idx_const)
     mant = scale_ops.quant_mantissas(scaled, wordlen)
     # operator feedback: |spec| > 1 is where the reference clamps and warns
     # (atrac_scale.cpp:150-167); counted here instead of printed per value
@@ -159,20 +161,24 @@ def _encode_window(pcm_ext, loud_init, bfu_idx_const, window_mode,
     lead = pcm_ext.shape[:-1]
     fe = pcm_ext.shape[-1] // T.NUM_SAMPLES
     f = fe - CHUNK_LEFT - CHUNK_RIGHT
-    low, mid, hi = filterbank.analysis(pcm_ext)
-    if window_mode == "auto":
-        if first:
-            c2, c4 = CHUNK_LEFT * 128, CHUNK_LEFT * 256
-            m = [transient_mask(low[..., c2:], 128),
-                 transient_mask(_invert_spectrum(mid[..., c2:]), 128),
-                 transient_mask(_invert_spectrum(hi[..., c4:]), 256)]
+    with trace.span("qmf_analysis"):
+        low, mid, hi = filterbank.analysis(pcm_ext)
+    with trace.span("transient_masks"):
+        if window_mode == "auto":
+            if first:
+                c2, c4 = CHUNK_LEFT * 128, CHUNK_LEFT * 256
+                m = [transient_mask(low[..., c2:], 128),
+                     transient_mask(_invert_spectrum(mid[..., c2:]), 128),
+                     transient_mask(_invert_spectrum(hi[..., c4:]), 256)]
+            else:
+                m = [transient_mask(low, 128),
+                     transient_mask(_invert_spectrum(mid), 128),
+                     transient_mask(_invert_spectrum(hi), 256)]
+                m = [x[..., CHUNK_LEFT:] for x in m]
+            masks_cl = torch.stack(m, dim=-1)             # [..., C, f+1, 3]
         else:
-            m = [transient_mask(low, 128)[..., CHUNK_LEFT:],
-                 transient_mask(_invert_spectrum(mid), 128)[..., CHUNK_LEFT:],
-                 transient_mask(_invert_spectrum(hi), 256)[..., CHUNK_LEFT:]]
-        masks_cl = torch.stack(m, dim=-1)                     # [..., C, f+1, 3]
-    else:
-        masks_cl = _fixed_masks(window_mask, lead + (f + 1,), pcm_ext.device)
+            masks_cl = _fixed_masks(window_mask, lead + (f + 1,),
+                                    pcm_ext.device)
     masks = masks_cl[..., :f, :]
 
     # MDCT with one warm-up frame whose stored half seeds the overlap (its
@@ -184,13 +190,16 @@ def _encode_window(pcm_ext, loud_init, bfu_idx_const, window_mode,
         m = torch.cat([warm, masks[..., col]], dim=-1)
         return mdct_frames(bf, m, band)[..., 1:, :]
 
-    specs = torch.cat([band_specs(low, 128, 0, 0), band_specs(mid, 128, 1, 1),
-                       band_specs(hi, 256, 2, 2)], dim=-1)
+    with trace.span("mdct"):
+        specs = torch.cat([band_specs(low, 128, 0, 0),
+                           band_specs(mid, 128, 1, 1),
+                           band_specs(hi, 256, 2, 2)], dim=-1)
     planes, loud = _encode_specs(specs, masks, loud_init, bfu_idx_const,
                                  use_rate_kernel)
     return planes, loud[..., -1]
 
 
+@trace.span("at1.encode_chunk")
 def encode_frames_chunk(pcm, state=None, next_head=None, bfu_idx_const=0,
                         window_mode="auto", window_mask=0):
     """Exact chunked encode: pcm [..., C, k*512]; state = the previous
@@ -208,7 +217,8 @@ def encode_frames_chunk(pcm, state=None, next_head=None, bfu_idx_const=0,
         hist, loud_init = state["pcm_tail"], state["loud"]
     tail = (torch.zeros(pcm.shape[:-1] + (T.NUM_SAMPLES,), dtype=pcm.dtype,
                         device=pcm.device) if next_head is None else next_head)
-    ext = torch.cat([hist, pcm, tail], dim=-1)
+    with trace.span("chunk_cat"):
+        ext = torch.cat([hist, pcm, tail], dim=-1)
     planes, loud_last = _encode_window(ext, loud_init, bfu_idx_const,
                                        window_mode, window_mask,
                                        first=state is None)
@@ -231,21 +241,25 @@ def encode_track(pcm, bfu_idx_const=0, window_mode="auto", window_mask=0,
                 window_mask=window_mask)
 
     if not chunk_frames or f_total <= chunk_frames:
-        planes = encode_frames(runtime.to_torch(pcm, dev), **opts)
+        with trace.span("at1.track_chunk"):
+            planes = encode_frames(runtime.to_torch(pcm, dev), **opts)
+            out = {k: runtime.to_numpy(v) for k, v in planes.items()}
         if progress is not None:
             progress(100)
-        return {k: runtime.to_numpy(v) for k, v in planes.items()}
+        return out
 
     state = None
     outs = []
     ns = T.NUM_SAMPLES
     for a in range(0, f_total, chunk_frames):
         b = min(a + chunk_frames, f_total)
-        nxt = (runtime.to_torch(pcm[:, b * ns:(b + 1) * ns], dev)
-               if b < f_total else None)
-        planes, state = encode_frames_chunk(
-            runtime.to_torch(pcm[:, a * ns:b * ns], dev), state, nxt, **opts)
-        outs.append({k: runtime.to_numpy(v) for k, v in planes.items()})
+        with trace.span("at1.track_chunk"):
+            nxt = (runtime.to_torch(pcm[:, b * ns:(b + 1) * ns], dev)
+                   if b < f_total else None)
+            planes, state = encode_frames_chunk(
+                runtime.to_torch(pcm[:, a * ns:b * ns], dev), state, nxt,
+                **opts)
+            outs.append({k: runtime.to_numpy(v) for k, v in planes.items()})
         if progress is not None:
             progress(int(b * 100 / f_total))
     return {k: np.concatenate([o[k] for o in outs], axis=1) for k in outs[0]}

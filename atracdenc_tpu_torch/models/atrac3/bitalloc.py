@@ -16,6 +16,7 @@ import functools
 import numpy as np
 import torch
 
+from atracdenc_tpu_torch import runtime, trace
 from atracdenc_tpu_torch.models.atrac3 import tables as T
 from atracdenc_tpu_torch.ops import psy
 from atracdenc_tpu_torch.ops.greedy import greedy_scan
@@ -52,6 +53,7 @@ def _consts(dev):
             "iota32": torch.arange(32, device=dev, dtype=torch.int32)}
 
 
+@trace.span("quant_tensors")
 def quant_tensors(scaled, valid_mask, fused_memo=False):
     """Per-(BFU, wordlen) quantisation costs (the reference TEncCache).
 
@@ -69,6 +71,7 @@ def quant_tensors(scaled, valid_mask, fused_memo=False):
             "vlc": vlc}
 
 
+@trace.span("final_mantissas")
 def final_mantissas(scaled, valid_mask, wl):
     """Mantissas [..., 32, 128] int8 at the chosen wordlens only."""
     mul = _consts(scaled.device)["maxq"][wl.long()]
@@ -194,7 +197,7 @@ def allocate_torch(qt, csfi, gated, spread, target, num_bfu, tonal_counts,
     num_bfu = num_bfu.to(torch.int32)
     wl, shrink = one_round(num_bfu)
     num_bfu = torch.where(shrink, num_bfu - 1, num_bfu)
-    while bool(torch.any(shrink)):
+    while runtime.host_bool(torch.any(shrink)):
         wl, shrink = one_round(num_bfu)
         num_bfu = torch.where(shrink, num_bfu - 1, num_bfu)
     mode, _ = _spec_cost(wl, qt, num_bfu)
@@ -205,6 +208,7 @@ def _empty_tonal_cost(wl, num_bfu):
     return torch.full(num_bfu.shape, 5, dtype=torch.int32, device=wl.device)
 
 
+@trace.span("allocate")
 def allocate(qt, sfi, gain_scale, energy, spread, loudness, target_bits,
              tonal_planes=None, bfu_idx_const=0, use_rate_kernel=True):
     """Full rate control for a batch of channel-frames.

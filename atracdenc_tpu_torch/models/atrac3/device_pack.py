@@ -19,6 +19,7 @@ import functools
 import numpy as np
 import torch
 
+from atracdenc_tpu_torch import trace
 from atracdenc_tpu_torch.models.atrac3 import tables as T
 from atracdenc_tpu_torch.ops.bitdeposit import deposit_fields
 
@@ -126,6 +127,7 @@ def _segment_sum(idx, valid, x, n_seg):
     return out.scatter_add_(1, idx.long(), torch.where(valid, x, 0).to(_I32))
 
 
+@trace.span("tonal_fields")
 def _tonal_fields(planes):
     """Tonal-section fields with explicit in-section bit offsets.
 
@@ -201,11 +203,13 @@ def _tonal_fields(planes):
     mwin = _segment_sum(seg, member, member_bits, 512).reshape(n, 32, 16)
     sg_bits = torch.where(sg_used, 10 + (cw + mwin).sum(-1, dtype=_I32), 0)
     head_bits = 5 + torch.where(num_sg > 0, 2, 0)
-    sg_start = head_bits[:, None] + torch.cumsum(sg_bits, -1) - sg_bits
+    with trace.span("offset_scan"):
+        sg_start = head_bits[:, None] + torch.cumsum(sg_bits, -1) - sg_bits
     total = head_bits + sg_bits.sum(-1)
 
     wm = cw + mwin
-    wstart = sg_start[:, :, None] + 10 + torch.cumsum(wm, -1) - wm
+    with trace.span("offset_scan"):
+        wstart = sg_start[:, :, None] + 10 + torch.cumsum(wm, -1) - wm
     mem_region = wstart + cw                              # [N, s, j]
 
     # member offsets: prefix over sorted order within (subgroup, window)
@@ -239,15 +243,19 @@ def _tonal_fields(planes):
     # mantissa codes, two lines per slot; inactive lines carry garbage
     # codes, zeroed so the pair OR cannot corrupt the active line
     mcode = torch.where(mbits > 0, mcode, 0)
-    mant_off = moff[:, :, None] + 12 + torch.cumsum(mbits, -1) - mbits
+    with trace.span("offset_scan"):
+        mant_off = moff[:, :, None] + 12 + torch.cumsum(mbits, -1) - mbits
     codd = torch.nn.functional.pad(mcode[..., 1::2], (0, 1))
     wodd = torch.nn.functional.pad(mbits[..., 1::2], (0, 1))
     emit((mcode[..., 0::2] << wodd) | codd, mbits[..., 0::2] + wodd,
          mant_off[..., 0::2])
 
-    return (torch.cat(vals, 1), torch.cat(wids, 1), torch.cat(offs, 1), total)
+    with trace.span("field_cat"):
+        return (torch.cat(vals, 1), torch.cat(wids, 1), torch.cat(offs, 1),
+                total)
 
 
+@trace.span("channel_fields")
 def channel_fields(planes, js1=False):
     """One channel's field planes [N, K] (values, widths, absolute offsets).
 
@@ -294,11 +302,12 @@ def channel_fields(planes, js1=False):
         gain_w.append(torch.where(in_band[:, band], 3, 0)[:, None])
         gain_v.append(pair_v[:, band])
         gain_w.append(9 * cnt[:, band])
-    emit(torch.cat(gain_v, 1), torch.cat(gain_w, 1))
-
-    pre_v = torch.cat(vals, 1)
-    pre_w = torch.cat(wids, 1)
-    pre_off = torch.cumsum(pre_w, -1) - pre_w
+    with trace.span("field_cat"):
+        emit(torch.cat(gain_v, 1), torch.cat(gain_w, 1))
+        pre_v = torch.cat(vals, 1)
+        pre_w = torch.cat(wids, 1)
+    with trace.span("offset_scan"):
+        pre_off = torch.cumsum(pre_w, -1) - pre_w
     pre_end = pre_off[:, -1] + pre_w[:, -1]
 
     if "tonal_active" in planes:
@@ -376,17 +385,19 @@ def channel_fields(planes, js1=False):
     mw = torch.where(pair_clc, 4, torch.where(pair_vlc, vlcp_w, mw))
 
     halves = [int(x) // 2 for x in T.SPECS_PER_BLOCK]
-    emit(torch.cat([mv[:, b, :h] for b, h in enumerate(halves)], dim=1),
-         torch.cat([mw[:, b, :h] for b, h in enumerate(halves)], dim=1))
+    with trace.span("field_cat"):
+        emit(torch.cat([mv[:, b, :h] for b, h in enumerate(halves)], dim=1),
+             torch.cat([mw[:, b, :h] for b, h in enumerate(halves)], dim=1))
+        post_v = torch.cat(vals, 1)
+        post_w = torch.cat(wids, 1)
+    with trace.span("offset_scan"):
+        post_off = post_base[:, None] + torch.cumsum(post_w, -1) - post_w
 
-    post_v = torch.cat(vals, 1)
-    post_w = torch.cat(wids, 1)
-    post_off = post_base[:, None] + torch.cumsum(post_w, -1) - post_w
-
-    values = torch.cat([pre_v, tv, post_v], 1)
-    widths = torch.cat([pre_w, tw, post_w], 1)
-    offsets = torch.cat([pre_off.to(_I32), t_off.to(_I32),
-                         post_off.to(_I32)], 1)
+    with trace.span("field_cat"):
+        values = torch.cat([pre_v, tv, post_v], 1)
+        widths = torch.cat([pre_w, tw, post_w], 1)
+        offsets = torch.cat([pre_off.to(_I32), t_off.to(_I32),
+                             post_off.to(_I32)], 1)
     return values, widths, offsets
 
 
@@ -399,6 +410,7 @@ def _empty_js_channel1(n, dev):
             "num_qmf": _full(n, 1, dev)}
 
 
+@trace.span("at3.pack")
 def pack_device_batch(planes, frame_bytes, js=False):
     """Planes [S, C, F, ...] ([S, F] for ms_shift / loudness) -> [S, F,
     frame_bytes] uint8.  Packing is frame-local, so the stream axis folds
@@ -410,13 +422,18 @@ def pack_device_batch(planes, frame_bytes, js=False):
             merged[k] = v.reshape((s * f,) + v.shape[2:])
         else:
             merged[k] = v.transpose(0, 1).reshape((c, s * f) + v.shape[3:])
-    return pack_device(merged, frame_bytes, js).reshape(s, f, frame_bytes)
+    return _pack(merged, frame_bytes, js).reshape(s, f, frame_bytes)
 
 
+@trace.span("at3.pack")
 def pack_device(planes, frame_bytes, js=False):
     """Device counterpart of ``frame.pack``: [C, F, ...] planes -> [F,
     frame_bytes] uint8, with mono duplication, the JS byte reversal and the
     M/S byte-budget boundary (atrac3_bitstream.cpp:899-914)."""
+    return _pack(planes, frame_bytes, js)
+
+
+def _pack(planes, frame_bytes, js):
     c, n = planes["num_bfu"].shape[:2]
     dev = planes["num_bfu"].device
     half = frame_bytes // 2

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from atracdenc_tpu_torch.models.atrac3 import tables as T
-from atracdenc_tpu_torch import runtime
+from atracdenc_tpu_torch import runtime, trace
 from atracdenc_tpu_torch.ops import psy, scale as scale_ops
 from . import device_pack, filterbank, gain, specblocks, tonal
 from .bitalloc import allocate, final_mantissas, quant_tensors
@@ -93,6 +93,7 @@ def encode_frames_bytes(pcm, frame_bytes=384, js=False, no_gain_control=True,
     return device_pack.pack_device(planes, frame_bytes, js)
 
 
+@trace.span("at3.encode_chunk")
 def encode_frames_chunk(pcm, state=None, next_pcm=None, frame_bytes=384,
                         js=False, no_gain_control=True, no_tonal=True,
                         bfu_idx_const=0, use_rate_kernel=True,
@@ -129,22 +130,25 @@ def encode_frames_chunk(pcm, state=None, next_pcm=None, frame_bytes=384,
 
     # QMF needs ~366 samples of history: prepend the previous chunk's tail
     # frame and drop its band outputs
-    ext = torch.cat([st["pcm_tail"], x], dim=-1)
-    bands = band_frames(ext)[:, :, 1:]                    # [S, C, F, 4, 256]
-    if next_pcm is None:
-        next_head = torch.zeros((s, c, 4, 128), dtype=pcm.dtype, device=dev)
-    else:
-        la = torch.cat([x[..., -2048:], next_pcm.reshape(s, c, -1)], dim=-1)
-        next_head = filterbank.analysis(la * 0.25)[..., -256:-128]
-    if js and c == 2:
-        # M/S matrixing in the band-sample domain (atrac3denc.cpp:665-677)
-        bands = torch.stack([(bands[:, 0] + bands[:, 1]) * 0.5,
-                             (bands[:, 0] - bands[:, 1]) * 0.5], dim=1)
-        next_head = torch.stack([(next_head[:, 0] + next_head[:, 1]) * 0.5,
-                                 (next_head[:, 0] - next_head[:, 1]) * 0.5],
-                                dim=1)
-    bands = bands.reshape(s * c, f, 4, 256)
-    next_head = next_head.reshape(s * c, 4, 128)
+    with trace.span("band_frames"):
+        ext = torch.cat([st["pcm_tail"], x], dim=-1)
+        bands = band_frames(ext)[:, :, 1:]                # [S, C, F, 4, 256]
+        if next_pcm is None:
+            next_head = torch.zeros((s, c, 4, 128), dtype=pcm.dtype,
+                                    device=dev)
+        else:
+            la = torch.cat([x[..., -2048:], next_pcm.reshape(s, c, -1)],
+                           dim=-1)
+            next_head = filterbank.analysis(la * 0.25)[..., -256:-128]
+        if js and c == 2:
+            # M/S matrixing in the band-sample domain (atrac3denc.cpp:665-677)
+            bands = torch.stack([(bands[:, 0] + bands[:, 1]) * 0.5,
+                                 (bands[:, 0] - bands[:, 1]) * 0.5], dim=1)
+            next_head = torch.stack(
+                [(next_head[:, 0] + next_head[:, 1]) * 0.5,
+                 (next_head[:, 0] - next_head[:, 1]) * 0.5], dim=1)
+        bands = bands.reshape(s * c, f, 4, 256)
+        next_head = next_head.reshape(s * c, 4, 128)
 
     if no_gain_control:
         gain_npoints = torch.zeros((s * c, f, 4), dtype=torch.int32, device=dev)
@@ -154,17 +158,19 @@ def encode_frames_chunk(pcm, state=None, next_pcm=None, frame_bytes=384,
         gain_scale_frame = torch.ones((s * c, f, 4), device=dev)
         gain_ctx_out = st["gain"]
         next_overlap = st["next_overlap"]
-        specs = mdct_frames(bands, prev_half=st["mdct_prev"])
-        mdct_last = k["enc_win"] * bands[:, -1]
+        with trace.span("mdct"):
+            specs = mdct_frames(bands, prev_half=st["mdct_prev"])
+            mdct_last = k["enc_win"] * bands[:, -1]
     else:
         gain_levels, gain_locs, gain_npoints, gain_ctx_out = gain.gain_control(
             bands, ctx=st["gain"], next_head=next_head)
-        div = gain_divisors(gain_levels, gain_locs, gain_npoints)
-        scl = first_level_scale(gain_levels, gain_npoints)
-        gain_scale_frame, (mdct_last, next_overlap) = gain.energy_scale(
-            bands, div, scl, prev_half=st["mdct_prev"],
-            prev_overlap_init=st["next_overlap"])
-        specs = mdct_frames(bands, div, scl, prev_half=st["mdct_prev"])
+        with trace.span("mdct"):
+            div = gain_divisors(gain_levels, gain_locs, gain_npoints)
+            scl = first_level_scale(gain_levels, gain_npoints)
+            gain_scale_frame, (mdct_last, next_overlap) = gain.energy_scale(
+                bands, div, scl, prev_half=st["mdct_prev"],
+                prev_overlap_init=st["next_overlap"])
+            specs = mdct_frames(bands, div, scl, prev_half=st["mdct_prev"])
 
     # loudness IIR (atrac3denc.cpp:811-841): stereo non-JS averages both
     # channels; mono and JS use channel 0 only
@@ -185,9 +191,10 @@ def encode_frames_chunk(pcm, state=None, next_pcm=None, frame_bytes=384,
     # loudness both use the pre-extraction spectrum
     tonal_planes = None
     if not no_tonal:
-        flat = tonal.flatness_per_bfu(specs * specs)
-        specs, tp = tonal.extract(specs, flat)
-        tonal_planes = tonal.scale_groups(tp)
+        with trace.span("tonal"):
+            flat = tonal.flatness_per_bfu(specs * specs)
+            specs, tp = tonal.extract(specs, flat)
+            tonal_planes = tonal.scale_groups(tp)
 
     blocks = specblocks.to_blocks(specs)                  # [S*C, F, 32, 128]
     sfi, scaled, energy = scale_ops.scale_blocks(blocks, k["mask"], k["scale"])
@@ -198,8 +205,9 @@ def encode_frames_chunk(pcm, state=None, next_pcm=None, frame_bytes=384,
 
     # per-channel bit budget (WriteSoundUnit, atrac3_bitstream.cpp:830-892)
     half = frame_bytes // 2
-    id_bits = torch.tensor([14 if (js and ch == 1) else 6 for ch in range(c)],
-                           dtype=torch.int32, device=dev)[None, :, None]
+    id_bits = runtime.from_host([14 if (js and ch == 1) else 6
+                                 for ch in range(c)], dev,
+                                torch.int32)[None, :, None]
     header_bits = id_bits + 2 + torch.sum(
         3 + gain_npoints.reshape(s, c, f, 4) * 9, dim=-1, dtype=torch.int32)
     if js:
@@ -295,22 +303,25 @@ def encode_track(pcm, frame_bytes=384, js=False, no_gain_control=True,
                 fused_memo=fused_memo)
 
     if f_total <= chunk_frames:
-        planes = encode_frames(runtime.to_torch(pcm, dev), **opts)
+        with trace.span("at3.track_chunk"):
+            planes = encode_frames(runtime.to_torch(pcm, dev), **opts)
+            out = {kk: runtime.to_numpy(v) for kk, v in planes.items()}
         if progress is not None:
             progress(100)
-        return {kk: runtime.to_numpy(v) for kk, v in planes.items()}
+        return out
 
     state = None
     outs = []
     n = T.NUM_SAMPLES
     for a in range(0, f_total, chunk_frames):
         b = min(a + chunk_frames, f_total)
-        chunk = runtime.to_torch(pcm[:, a * n: b * n], dev)
-        nxt = None
-        if b < f_total:
-            nxt = runtime.to_torch(pcm[:, b * n: (b + 1) * n], dev)
-        planes, state = encode_frames_chunk(chunk, state, nxt, **opts)
-        outs.append({kk: runtime.to_numpy(v) for kk, v in planes.items()})
+        with trace.span("at3.track_chunk"):
+            chunk = runtime.to_torch(pcm[:, a * n: b * n], dev)
+            nxt = None
+            if b < f_total:
+                nxt = runtime.to_torch(pcm[:, b * n: (b + 1) * n], dev)
+            planes, state = encode_frames_chunk(chunk, state, nxt, **opts)
+            outs.append({kk: runtime.to_numpy(v) for kk, v in planes.items()})
         if progress is not None:
             progress(int(b * 100 / f_total))
     return {kk: np.concatenate([o[kk] for o in outs],

@@ -14,6 +14,7 @@ import functools
 import numpy as np
 import torch
 
+from atracdenc_tpu_torch import trace
 from atracdenc_tpu_torch.models.atrac3 import tables as T
 from .mdct import gain_divisors
 
@@ -361,6 +362,7 @@ def assemble_up_in(bands, ctx, next_head=None):
     return up_in.transpose(1, 2)                          # [C, F, 4, 512]
 
 
+@trace.span("gain_control")
 def gain_control(bands, ctx=None, next_head=None, debug=False):
     """Gain-curve construction for a whole track (or one exact chunk).
 

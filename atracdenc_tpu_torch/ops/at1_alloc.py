@@ -11,13 +11,10 @@ import functools
 
 import torch
 
-from atracdenc_tpu_torch import kernels
+from atracdenc_tpu_torch import kernels, trace
 from atracdenc_tpu_torch.models.atrac1 import bitalloc
 
 NB = 52
-
-# launches of the CUDA kernel (the plain version is not counted)
-launches = 0
 
 
 def at1_allocate_torch(sfi, energy, short_flags, loudness, bfu_idx_const=0):
@@ -94,7 +91,6 @@ def at1_allocate_block(sfi, energy, short_flags, loudness, bfu_idx_const=0):
     if sfi.device.type == "cpu":
         return at1_allocate_torch(sfi, energy, short_flags, loudness,
                                   bfu_idx_const)
-    global launches
     lib = kernels.library()
     if not 0 <= bfu_idx_const <= 8:
         raise ValueError(f"at1_allocate_block: bfu_idx_const {bfu_idx_const} "
@@ -113,5 +109,5 @@ def at1_allocate_block(sfi, energy, short_flags, loudness, bfu_idx_const=0):
         *_table_ptrs(dev), len(bitalloc.BOOST_ENTRIES), wl.data_ptr(),
         idx.data_ptr(), idx.numel(), bfu_idx_const, flags_stride, channels,
         frames, kernels.stream_ptr(sfi)), "at1_allocate_block")
-    launches += 1
+    trace.count("launch.at1_alloc")
     return idx, wl

@@ -13,6 +13,8 @@ is no float arithmetic at all.
 """
 import torch
 
+from atracdenc_tpu_torch import trace
+
 __all__ = ["deposit_fields"]
 
 _U32 = 0xFFFFFFFF
@@ -24,6 +26,7 @@ def _byte_lanes(x):
                         x & 0xFF], dim=-1)
 
 
+@trace.span("deposit_fields")
 def deposit_fields(values, widths, offsets, total_bytes):
     """values / widths / offsets [F, K] (any integer dtype) -> [F,
     total_bytes] uint8 frames.  Values must be pre-masked to their widths

@@ -9,10 +9,7 @@ they agree bit for bit.
 """
 import torch
 
-from atracdenc_tpu_torch import kernels
-
-# launches of the CUDA kernel (the plain version is not counted)
-launches = 0
+from atracdenc_tpu_torch import kernels, trace
 
 
 def greedy_torch(a, b, elig, e1, e2):
@@ -33,7 +30,6 @@ def greedy_scan(a, b, elig, e1, e2):
     the JAX ``greedy_scan``."""
     if a.device.type == "cpu":
         return greedy_torch(a, b, elig, e1, e2)
-    global launches
     lib = kernels.library()
     rows, L = a.shape
     f32 = torch.float32
@@ -50,5 +46,5 @@ def greedy_scan(a, b, elig, e1, e2):
         a.data_ptr(), b.data_ptr(), elig.data_ptr(), e1.data_ptr(),
         e2.data_ptr(), e2_out.data_ptr(), accept.data_ptr(), rows, L,
         kernels.stream_ptr(a)), "greedy_scan")
-    launches += 1
+    trace.count("launch.greedy")
     return e2_out, accept

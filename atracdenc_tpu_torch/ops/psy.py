@@ -8,6 +8,8 @@ sequential dependency and runs as a loop of f32 ops in frame order.
 import numpy as np
 import torch
 
+from atracdenc_tpu_torch import runtime, trace
+
 __all__ = ["ath_formula_frank", "calc_ath", "ath_per_bfu",
            "create_loudness_curve", "track_loudness_scan"]
 
@@ -73,6 +75,7 @@ def create_loudness_curve(sz):
     return np.power(10.0, 0.1 * t).astype(np.float32)
 
 
+@trace.span("loudness_scan")
 def track_loudness_scan(l0, l1, use_both, use_one, init):
     """Per-frame loudness IIR over the last axis (frames).
 
@@ -88,7 +91,7 @@ def track_loudness_scan(l0, l1, use_both, use_one, init):
     a = torch.where(use_both | use_one, 0.98, 1.0).to(l0.dtype)
     b = torch.where(use_both, 0.01 * (l0 + l1),
                     torch.where(use_one, 0.02 * l0, 0.0)).to(l0.dtype)
-    carry = torch.as_tensor(init, dtype=l0.dtype, device=l0.device)
+    carry = runtime.from_host(init, l0.device, l0.dtype)
     carry = carry.expand(l0.shape[:-1])
     out = []
     for k in range(l0.shape[-1]):

@@ -22,16 +22,12 @@ import numpy as np
 import torch
 
 from atracdenc_tpu_torch.models.atrac3 import tables as T
-from atracdenc_tpu_torch import kernels
+from atracdenc_tpu_torch import kernels, trace
 from atracdenc_tpu_torch.ops.greedy import greedy_torch
 from atracdenc_tpu_torch.ops.quant import (_flip_dn, _flip_up, _round_energy,
                                            quant_blocks)
 
 MAX_WL = 8
-
-# launches of the CUDA kernels A and D (the plain versions are not counted)
-launches = 0
-full_launches = 0
 
 
 def ea_groups():
@@ -144,7 +140,6 @@ def quant_cost_plain(scaled, valid_mask):
     (or raises)."""
     if scaled.device.type == "cpu":
         return quant_cost_torch(scaled, valid_mask)
-    global launches
     lib = kernels.library()
     if scaled.dtype != torch.float32 or tuple(scaled.shape[-2:]) != (32, 128):
         raise ValueError(f"quant_cost_plain: need [..., 32, 128] f32, got "
@@ -156,7 +151,7 @@ def quant_cost_plain(scaled, valid_mask):
     kernels.check(lib.atrac3_quant_cost_plain(
         x.data_ptr(), mask.data_ptr(), err.data_ptr(), vlc.data_ptr(),
         x.numel() // (32 * 128), kernels.stream_ptr(x)), "quant_cost_plain")
-    launches += 1
+    trace.count("launch.quant_cost")
     return err, vlc
 
 
@@ -232,7 +227,6 @@ def quant_cost_full(scaled, valid_mask):
     (or raises)."""
     if scaled.device.type == "cpu":
         return quant_cost_full_torch(scaled, valid_mask)
-    global full_launches
     lib = kernels.library()
     if scaled.dtype != torch.float32 or tuple(scaled.shape[-2:]) != (32, 128):
         raise ValueError(f"quant_cost_full: need [..., 32, 128] f32, got "
@@ -244,5 +238,5 @@ def quant_cost_full(scaled, valid_mask):
     kernels.check(lib.atrac3_quant_cost_full(
         x.data_ptr(), mask.data_ptr(), err.data_ptr(), vlc.data_ptr(),
         x.numel() // (32 * 128), kernels.stream_ptr(x)), "quant_cost_full")
-    full_launches += 1
+    trace.count("launch.quant_full")
     return err, vlc

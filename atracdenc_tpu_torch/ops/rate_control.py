@@ -23,13 +23,9 @@ import functools
 import torch
 
 from atracdenc_tpu_torch.models.atrac3 import tables as T
-from atracdenc_tpu_torch import kernels
+from atracdenc_tpu_torch import kernels, trace
 
 MAX_WL = 8
-
-# launches of the CUDA kernels C and F (the plain versions are not counted)
-launches = 0
-bisect_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -108,7 +104,6 @@ def bisect_block(csfi, gated, tonal_counts, spread, target, num_bfu, err,
             vlc, t_active, t_pos, t_len, t_bfu, t_vlc)
     if csfi.device.type == "cpu":
         return bisect_torch(*args)
-    global bisect_launches
     lib = kernels.library()
     lead = tuple(spread.shape)
     ins, clc_stride = _planes("bisect_block", *args)
@@ -117,7 +112,7 @@ def bisect_block(csfi, gated, tonal_counts, spread, target, num_bfu, err,
     kernels.check(lib.atrac3_bisect(
         *[t.data_ptr() for t in ins], wl.data_ptr(), spread.numel(),
         clc_stride, kernels.stream_ptr(csfi)), "bisect_block")
-    bisect_launches += 1
+    trace.count("launch.bisect")
     return wl
 
 
@@ -139,7 +134,6 @@ def rate_control_block(csfi, gated, tonal_counts, spread, target, num_bfu,
         return rate_control_torch(csfi, gated, tonal_counts, spread, target,
                                   num_bfu, err, clc, vlc, t_active, t_pos,
                                   t_len, t_bfu, t_vlc, auto)
-    global launches
     lib = kernels.library()
     lead = tuple(spread.shape)
     ins, clc_stride = _planes("rate_control_block", csfi, gated, tonal_counts,
@@ -154,5 +148,5 @@ def rate_control_block(csfi, gated, tonal_counts, spread, target, num_bfu,
         *[t.data_ptr() for t in ins], wl.data_ptr(), nb.data_ptr(),
         mode.data_ptr(), spread.numel(), clc_stride, 1 if auto else 0,
         kernels.stream_ptr(csfi)), "rate_control_block")
-    launches += 1
+    trace.count("launch.rate_control")
     return nb, mode, wl

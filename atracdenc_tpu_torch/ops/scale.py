@@ -6,9 +6,12 @@ over the 64-entry float32 scale table, written as a comparison count.
 """
 import torch
 
+from atracdenc_tpu_torch import trace
+
 __all__ = ["scale_blocks", "quant_mantissas"]
 
 
+@trace.span("scale_blocks")
 def scale_blocks(values, valid_mask, scale_table):
     """values [..., n_bfu, maxlen], valid_mask [n_bfu, maxlen] bool,
     scale_table [64] f32 ascending.
@@ -29,6 +32,7 @@ def scale_blocks(values, valid_mask, scale_table):
     return sfi, scaled * mask, energy
 
 
+@trace.span("quant_mantissas")
 def quant_mantissas(scaled, wordlen):
     """Round-half-even mantissas (lrint under FE_TONEAREST, reference
     src/util.h:98-109, atrac1_bitalloc.cpp:307-317); ``torch.round`` rounds

@@ -5,9 +5,16 @@ CUDA, PyTorch would route f32 matmuls and cuDNN convolutions through TF32
 (about three decimal digits) if allowed, so both switches are turned off
 here, at import, for the whole process.  Every module of the port imports
 this one first.
+
+``to_numpy`` and ``host_bool`` of a device tensor, and ``to_torch`` and
+``from_host`` to a device, are where the program blocks the host on the
+card (a copy from pageable host memory ends in a stream synchronisation);
+each counts ``host_sync`` in ``trace``.
 """
 import numpy as np
 import torch
+
+from atracdenc_tpu_torch import trace
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -43,11 +50,33 @@ def to_torch(a, dev) -> torch.Tensor:
     a = canonical(a)              # keeps 0-d (ascontiguousarray makes 1-d)
     if not (a.flags.c_contiguous and a.flags.writeable):
         a = a.copy(order="C")
+    if torch.device(dev).type != "cpu":
+        trace.count("host_sync")
     return torch.from_numpy(a).to(dev)
+
+
+def from_host(data, dev, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(data, dtype=dtype, device=dev)``, counting a
+    ``host_sync`` when host data goes to a device that is not the CPU."""
+    kind = torch.device(dev).type
+    if kind != "cpu" and not (isinstance(data, torch.Tensor)
+                              and data.device.type == kind):
+        trace.count("host_sync")
+    return torch.as_tensor(data, dtype=dtype, device=dev)
+
+
+def host_bool(t) -> bool:
+    """``bool(t)`` of a one-element tensor, counting a ``host_sync`` when it
+    is not on the CPU."""
+    if t.device.type != "cpu":
+        trace.count("host_sync")
+    return bool(t)
 
 
 def to_numpy(t) -> np.ndarray:
     if isinstance(t, torch.Tensor):
+        if t.device.type != "cpu":
+            trace.count("host_sync")
         return t.detach().cpu().numpy()
     return np.asarray(t)
 

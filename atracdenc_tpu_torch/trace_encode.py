@@ -1,34 +1,51 @@
-"""Where the port's encode time goes on one GPU.
+"""Where the port's encode time goes on one GPU, read from its own spans.
 
     python -m atracdenc_tpu_torch.trace_encode [--out PATH.json]
 
-Traces two paths on the bench corpus (seed 42, 997 Hz tone + noise):
+Traces one batch call of each codec on the bench corpus (seed 42, 997 Hz
+tone + noise): a middle chunk (the carry of a first chunk of the same PCM,
+its first frame as the lookahead), ``encode_frames_chunk`` then the device
+packer, as a library user batches tracks:
   * ATRAC3, the main path: 64 streams x 256 stereo frames, default mode,
-    encode + device packer (``encode_frames_bytes``), the shape of
-    chip_smoke.py and bench.py's AT3 leg;
-  * ATRAC1, bench.py's AT1 leg: 8 streams x 2 ch x 512 frames, encode +
-    device packer.
-Each is run once to warm up, then
-  1. each stage is timed with the device synchronised around it (stage
-     wall times, which add up to the synchronised time);
-  2. one unsynchronised run is profiled with torch.profiler: wall time,
-     summed kernel time (device busy), the device's idle share, and the
-     kernels with the most device time.
+    ``pack_device_batch`` (the shape of chip_smoke.py and bench.py);
+  * ATRAC1: the same PCM as 64 streams x 2 ch x 512 frames (the
+    ``atrac1-sp.batch`` cell's call), ``pack_device``.
+Each call runs twice to warm up, then
+  1. once with the port's tracer on (``trace.py``): per span path (root /
+     ... / span) the calls, host ms, device ms and self ms (the device time
+     its child spans leave; the self times add up to the roots' time), and
+     the ``host_sync`` count under each root;
+  2. once more with the tracer on under ``torch.profiler``: the device's
+     busy time (the union of its kernel, copy and set intervals, not their
+     sum) and idle share, the device ops with most time, and every device
+     op and idle gap put under the innermost program span: the span whose
+     profiler range holds the host time of the runtime call that launched
+     the op (for a gap, the op that ends it), on the profiler's own clock.  The sites of ``CatArrayBatchedCopy`` and of the
+     int64 scans are listed by span path; a function that opens one site
+     span name at several sites (``offset_scan``, ``field_cat``) has them
+     apart as ``name[k]``, the k-th in the function.
 Writes the numbers as JSON to --out and prints a summary.  Needs CUDA.
 """
 import argparse
+import collections
 import json
 import os
 import subprocess
+import tempfile
 import time
 
 import torch
 
-from atracdenc_tpu_torch import kernels
-from atracdenc_tpu_torch.bench import (AT1_FRAMES, AT1_STREAMS, SHAPES,
-                                       at1_units, corpus, device_seconds)
+from atracdenc_tpu_torch import kernels, trace
+from atracdenc_tpu_torch.bench import SHAPES, at1_units, corpus, device_seconds
 
 STREAMS, FRAMES = SHAPES["cuda"]
+TOP = 10
+# span names that one function opens at several sites: kept apart as
+# name[k], the k-th of its name under one parent
+SITES = ("offset_scan", "field_cat")
+_DEVICE = ("kernel", "gpu_memcpy", "gpu_memset")
+_LAUNCH = ("cuda_runtime", "cuda_driver")
 
 
 def _corpus(streams, nframes, dev):
@@ -86,63 +103,171 @@ def device_kernels(prof):
     return out
 
 
-def _stage_times(x, encode, stages):
-    """Wrap the stages (module, name, label) with synchronised timers;
-    returns ms per stage for one run."""
-    ms = {}
-    saved = []
-    depth = [0]                  # a stage called inside another is not split out
-    for mod, name, label in stages:
-        fn = getattr(mod, name)
-        saved.append((mod, name, fn))
+def span_paths(records):
+    """Records -> copies named by their path ("root/.../name", a site span
+    as name[k])."""
+    by_id = {r["id"]: r for r in records}
+    order = collections.defaultdict(list)
+    for r in sorted(records, key=lambda r: r["host"][0]):
+        if r["name"] in SITES:
+            order[r["parent"], r["name"]].append(r["id"])
 
-        def timed(*a, _fn=fn, _label=label, **kw):
-            if depth[0]:
-                return _fn(*a, **kw)
-            depth[0] += 1
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            try:
-                out = _fn(*a, **kw)
-                torch.cuda.synchronize()
-            finally:
-                depth[0] -= 1
-            ms[_label] = ms.get(_label, 0.0) + 1e3 * (time.perf_counter() - t0)
-            return out
-        setattr(mod, name, timed)
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        encode(x)
-        torch.cuda.synchronize()
-        total = 1e3 * (time.perf_counter() - t0)
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-    ms["other (glue)"] = total - sum(ms.values())
-    return total, ms
+    def label(r):
+        if r["name"] not in SITES:
+            return r["name"]
+        return f"{r['name']}[{order[r['parent'], r['name']].index(r['id'])}]"
+
+    def path(r):
+        names = [label(r)]
+        while r["parent"] is not None and r["parent"] in by_id:
+            r = by_id[r["parent"]]
+            names.append(label(r))
+        return "/".join(reversed(names))
+    return [dict(r, name=path(r)) for r in records]
 
 
-def _trace(x, encode, stages, items):
-    """Warm-up, synchronised stage times, then one profiled run."""
-    encode(x)
+def stage_split(records):
+    """The tracer's records of one call -> ({path: {calls, host_ms,
+    device_ms, self_ms}}, {root: host_sync count}, the roots' ms)."""
+    records = [r for r in records if not r["profiled"]]
+    spans = trace.summarize(span_paths(records))["spans"]
+    stages = {k: {"calls": v["count"], "host_ms": v["host_ms"],
+                  "device_ms": v["device_ms"], "self_ms": v["self_ms"]}
+              for k, v in spans.items()}
+    syncs = collections.Counter()
+    for r in records:
+        syncs[r["root_name"]] += r["counts"].get("host_sync", 0)
+    roots = sum(v["device_ms"] if v["device_ms"] is not None else v["host_ms"]
+                for k, v in spans.items() if "/" not in k)
+    return stages, dict(syncs), roots
+
+
+def _union(intervals):
+    merged = []
+    for a, b in sorted(intervals):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
+def _contains(p, e):
+    return p is not e and p["ts"] <= e["ts"] \
+        and e["ts"] + e["dur"] <= p["ts"] + p["dur"]
+
+
+def _labels(notes):
+    """id(annotation) -> its name, a site span's as name[k]."""
+    order = collections.defaultdict(list)
+    for e in sorted(notes, key=lambda e: e["ts"]):
+        if e["name"] in SITES:
+            parent = min((p for p in notes if _contains(p, e)),
+                         key=lambda p: p["dur"], default=None)
+            order[id(parent), e["name"]].append(e)
+    labels = {id(e): e["name"] for e in notes}
+    for sites in order.values():
+        for k, e in enumerate(sites):
+            labels[id(e)] = f"{e['name']}[{k}]"
+    return labels
+
+
+def _innermost(annotations, labels, t):
+    """The path of program spans whose host range holds time ``t``,
+    outermost first ("(no span)" if none)."""
+    inside = [e for e in annotations if e["ts"] <= t <= e["ts"] + e["dur"]]
+    inside.sort(key=lambda e: -e["dur"])
+    return "/".join(labels[id(e)] for e in inside) or "(no span)"
+
+
+def attribute(events, wall_s, names):
+    """A profiler trace's events (Chrome format) and the program's span
+    ``names`` -> busy / idle, top ops, and every device op and idle gap
+    under its innermost program span."""
+    dev = [e for e in events if e.get("ph") == "X" and "dur" in e
+           and e.get("cat") in _DEVICE]
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("ph") == "X" and e.get("cat") in _LAUNCH
+              and "correlation" in e.get("args", {})}
+    notes = [e for e in events if e.get("ph") == "X"
+             and e.get("cat") == "cpu_op" and e["name"] in names]
+    labels = _labels(notes)
+
+    def where(op):
+        call = launch.get(op.get("args", {}).get("correlation"))
+        if call is None:
+            return "(no launch)"
+        return _innermost(notes, labels, call["ts"])
+
+    merged = _union((e["ts"], e["ts"] + e["dur"]) for e in dev)
+    busy_s = sum(b - a for a, b in merged) / 1e6
+    by_op, by_span = collections.Counter(), collections.Counter()
+    cats, scans = collections.Counter(), collections.Counter()
+    n_cat, n_scan = collections.Counter(), collections.Counter()
+    for e in dev:
+        ms = e["dur"] / 1e3
+        site = where(e)
+        by_op[e["name"][:120]] += ms
+        by_span[site] += ms
+        name = e["name"]
+        if "CatArrayBatchedCopy" in name:
+            cats[site] += ms
+            n_cat[site] += 1
+        elif "scan" in name.lower() and ("long" in name or "int64" in name):
+            scans[site] += ms
+            n_scan[site] += 1
+    starts = sorted(dev, key=lambda e: e["ts"])
+    gaps = sorted(((merged[i + 1][0] - merged[i][1], merged[i + 1][0])
+                   for i in range(len(merged) - 1)), reverse=True)[:TOP]
+    idle = []
+    for dur, b in gaps:
+        op = next(e for e in starts if e["ts"] >= b)
+        idle.append({"ms": dur / 1e3, "span": where(op),
+                     "next_op": op["name"][:120]})
+
+    def top(c, n=None):
+        return [{"span": k, "ms": v, **({"launches": n[k]} if n else {})}
+                for k, v in c.most_common(TOP)]
+    return {"wall_ms": 1e3 * wall_s, "device_busy_ms": 1e3 * busy_s,
+            "device_idle_share": 1.0 - busy_s / wall_s if wall_s else None,
+            "kernel_launches": sum(1 for e in dev if e["cat"] == "kernel"),
+            "top_ops": [{"name": k, "ms": v}
+                        for k, v in by_op.most_common(15)],
+            "device_ms_by_span": top(by_span), "cat_sites": top(cats, n_cat),
+            "int64_scan_sites": top(scans, n_scan),
+            "idle_gaps": idle}
+
+
+def _trace(call, items):
+    """Warm-up, one traced call, one traced call under the profiler."""
+    for _ in range(2):
+        call()
     torch.cuda.synchronize()
-    sync_total, stage_ms = _stage_times(x, encode, stages)
+    trace.reset()
+    trace.enable()
+    call()
+    stages, syncs, roots_ms = stage_split(trace.snapshot()["records"])
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        encode(x)
         torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    kern = sorted(device_kernels(prof), key=lambda r: -r[1])
-    busy = sum(r[1] for r in kern)
-    return {"items": items, "wall_ms": wall, "device_busy_ms": busy,
-            "device_idle_share": 1.0 - busy / wall if wall > 0 else None,
-            "kernel_launches": sum(r[2] for r in kern),
-            "sync_ms": sync_total, "stage_ms": stage_ms,
-            "top_kernels": [{"name": k, "ms": v, "count": c}
-                            for k, v, c in kern[:25]]}
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    names = {r["name"] for r in trace.snapshot()["records"]}
+    trace.disable()
+    trace.reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "profile.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fp:
+            events = json.load(fp)["traceEvents"]
+    out = {"items": items, "roots_ms": roots_ms,
+           "self_ms_sum": sum(v["self_ms"] for v in stages.values()),
+           "stages": stages, "host_syncs": syncs}
+    out.update(attribute(events, wall_s, names))
+    return out
 
 
 def main(argv=None):
@@ -154,67 +279,62 @@ def main(argv=None):
     from atracdenc_tpu_torch import runtime
     from atracdenc_tpu_torch.models.atrac1 import device_pack as pack1
     from atracdenc_tpu_torch.models.atrac1 import encoder as enc1
-    from atracdenc_tpu_torch.models.atrac1 import filterbank as fb1
     from atracdenc_tpu_torch.models.atrac3 import device_pack as pack3
-    from atracdenc_tpu_torch.models.atrac3 import encoder, gain, tonal
-    from atracdenc_tpu_torch.ops import psy, scale
+    from atracdenc_tpu_torch.models.atrac3 import encoder as enc3
 
     dev = runtime.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
 
-    at3_stages = [(encoder, "band_frames", "qmf bands"),
-                  (gain, "gain_control", "gain control"),
-                  (gain, "energy_scale", "gain energy scale"),
-                  (encoder, "mdct_frames", "mdct"),
-                  (psy, "track_loudness_scan", "loudness IIR"),
-                  (tonal, "flatness_per_bfu", "tonal flatness"),
-                  (tonal, "extract", "tonal extract"),
-                  (tonal, "scale_groups", "tonal scale"),
-                  (scale, "scale_blocks", "scale"),
-                  (encoder, "quant_tensors", "quant memo (A, B)"),
-                  (encoder, "allocate", "rate control (C)"),
-                  (encoder, "final_mantissas", "final mantissas (B)"),
-                  (pack3, "channel_fields", "pack fields"),
-                  (pack3, "deposit_fields", "bit deposit")]
-    at1_stages = [(fb1, "analysis", "qmf bands"),
-                  (enc1, "transient_mask", "transient detect"),
-                  (enc1, "mdct_frames", "mdct"),
-                  (psy, "track_loudness_scan", "loudness IIR"),
-                  (enc1, "gather_bfu_blocks", "bfu blocks"),
-                  (scale, "scale_blocks", "scale"),
-                  (enc1, "at1_allocate_block", "rate control (E)"),
-                  (scale, "quant_mantissas", "mantissas"),
-                  (pack1, "pack_device", "device pack")]
-
-    def at1_path(xx):
-        return pack1.pack_device(at1_units(enc1.encode_frames(xx)))
-
     x3 = _corpus(STREAMS, FRAMES, dev)
-    out = {"card": card, "atrac3": _trace(
-        x3, lambda xx: encoder.encode_frames_bytes(
-            xx, no_gain_control=False, no_tonal=False),
-        at3_stages, {"stereo_frames": STREAMS * FRAMES})}
-    x1 = x3[:AT1_STREAMS].contiguous()     # 256 x 1024 = 512 x 512 samples
-    del x3
-    out["atrac1"] = _trace(x1, at1_path, at1_stages,
-                           {"sound_units": AT1_STREAMS * 2 * AT1_FRAMES})
+    opts3 = dict(no_gain_control=False, no_tonal=False)
+    _, st3 = enc3.encode_frames_chunk(x3, None, x3[..., :1024], **opts3)
+
+    def at3_call():
+        planes, _ = enc3.encode_frames_chunk(x3, st3, x3[..., :1024], **opts3)
+        return pack3.pack_device_batch(planes, 384)
+
+    out = {"card": card, "atrac3": _trace(at3_call, {
+        "stereo_frames": STREAMS * FRAMES})}
+    # the same PCM: 256 x 1024 = 512 x 512 samples a stream
+    _, st1 = enc1.encode_frames_chunk(x3, None, x3[..., :512])
+
+    def at1_call():
+        planes, _ = enc1.encode_frames_chunk(x3, st1, x3[..., :512])
+        return pack1.pack_device(at1_units(planes))
+
+    out["atrac1"] = _trace(at1_call, {
+        "sound_units": STREAMS * 2 * FRAMES * 2})
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as fp:
         json.dump(out, fp, indent=1)
-    for path in ("atrac3", "atrac1"):
-        r = out[path]
-        print(f"{card} | {path} {r['items']}: wall {r['wall_ms']:.1f} ms, "
+    for codec in ("atrac3", "atrac1"):
+        r = out[codec]
+        print(f"{card} | {codec} {r['items']}: wall {r['wall_ms']:.1f} ms, "
               f"device busy {r['device_busy_ms']:.1f} ms, idle share "
-              f"{r['device_idle_share']:.3f}, {r['kernel_launches']} kernel "
-              f"launches")
-        print(f"synchronised stage times (total {r['sync_ms']:.1f} ms):")
-        for k, v in sorted(r["stage_ms"].items(), key=lambda kv: -kv[1]):
-            print(f"  {k:24s} {v:9.2f} ms")
-        print("top kernels by device time:")
-        for k in r["top_kernels"][:15]:
-            print(f"  {k['ms']:9.3f} ms  x{k['count']:<5d} {k['name'][:90]}")
+              f"{r['device_idle_share']:.4f}, {r['kernel_launches']} kernel "
+              f"launches; host syncs by root {r['host_syncs']}")
+        print(f"spans (roots {r['roots_ms']:.2f} ms, self times add to "
+              f"{r['self_ms_sum']:.2f} ms): path, calls, host ms, device ms, "
+              "self ms")
+        for k, v in sorted(r["stages"].items(),
+                           key=lambda kv: -kv[1]["self_ms"]):
+            print(f"  {k:58s} {v['calls']:4d} {v['host_ms']:9.3f} "
+                  f"{v['device_ms'] or 0.0:9.3f} {v['self_ms']:9.3f}")
+        for key, title in (("device_ms_by_span", "device ms by span"),
+                           ("cat_sites", "CatArrayBatchedCopy by span"),
+                           ("int64_scan_sites", "int64 scans by span")):
+            print(f"{title}:")
+            for s in r[key]:
+                n = f" x{s['launches']}" if "launches" in s else ""
+                print(f"  {s['ms']:9.3f} ms{n:7s} {s['span']}")
+        print("idle gaps: ms, span, the op that ends the gap")
+        for g in r["idle_gaps"]:
+            print(f"  {g['ms']:7.3f} {g['span']:50s} {g['next_op'][:60]}")
+        print("top device ops:")
+        for o in r["top_ops"]:
+            print(f"  {o['ms']:9.3f} ms  {o['name'][:100]}")
 
 
 if __name__ == "__main__":

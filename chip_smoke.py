@@ -245,24 +245,20 @@ def bound(n_bytes, n_ops):
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
-def _counters():
-    """Kernel -> (wrapper module, its launch counter's name), A to F."""
-    from atracdenc_tpu_torch.ops import (at1_alloc, greedy, quant_cost,
-                                         rate_control)
-    return {"A": (quant_cost, "launches"), "B": (greedy, "launches"),
-            "C": (rate_control, "launches"),
-            "D": (quant_cost, "full_launches"),
-            "E": (at1_alloc, "launches"),
-            "F": (rate_control, "bisect_launches")}
+# kernel -> its launch counter in the port's tracer, A to F
+COUNTERS = {"A": "launch.quant_cost", "B": "launch.greedy",
+            "C": "launch.rate_control", "D": "launch.quant_full",
+            "E": "launch.at1_alloc", "F": "launch.bisect"}
 
 
 def counts():
-    return {k: getattr(m, a) for k, (m, a) in _counters().items()}
+    from atracdenc_tpu_torch import trace
+    return {k: trace.counter(c) for k, c in COUNTERS.items()}
 
 
 def zero_counts():
-    for m, a in _counters().values():
-        setattr(m, a, 0)
+    from atracdenc_tpu_torch import trace
+    trace.reset()
 
 
 MESH_RANKS = 4                             # phase 12: dp 2 x sp 2 on one card
@@ -279,7 +275,6 @@ def mesh_rank(rank, coordinator, out_dir, spec):
     import torch.distributed as dist
     sys.path.insert(0, ROOT)
     from atracdenc_tpu_torch.bench import corpus
-    from atracdenc_tpu_torch.ops import at1_alloc, greedy, quant_cost, rate_control
     from atracdenc_tpu_torch.parallel import distributed as D
     from atracdenc_tpu_torch.parallel import mesh as M
     spec = json.loads(spec)
@@ -287,14 +282,11 @@ def mesh_rank(rank, coordinator, out_dir, spec):
     dev = D.initialize(coordinator, MESH_RANKS, rank, device=spec["device"])
     mesh = M.make_mesh(MESH_RANKS, device=dev)
     assert mesh.shape == {"dp": 2, "sp": 2}, mesh.shape
-    mods = {"A": quant_cost, "B": greedy, "C": rate_control, "E": at1_alloc}
-
     def timed(fn):
         if dev.type == "cuda":
             torch.cuda.synchronize()
         dist.barrier()
-        for m in mods.values():
-            m.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         out = fn()
         return out, time.perf_counter() - t0
@@ -304,16 +296,16 @@ def mesh_rank(rank, coordinator, out_dir, spec):
     pcm3p = pcm[:spec["at3p_streams"], :, :2048 * spec["at3p_frames"]]
     M.encode_batch_at3_bytes_sharded(pcm, mesh)               # warm
     at3, t_at3 = timed(lambda: M.encode_batch_at3_bytes_sharded(pcm, mesh))
-    counts = {k: mods[k].launches for k in "ABC"}
+    launched = {k: v for k, v in counts().items() if k in "ABC"}
     M.encode_batch_sharded(pcm1, mesh)                        # warm
     at1, t_at1 = timed(lambda: M.encode_batch_sharded(pcm1, mesh))
-    counts["E"] = at1_alloc.launches
+    launched["E"] = counts()["E"]
     dec = M.decode_batch_at1_sharded(at1, M.make_mesh(MESH_RANKS, dp=4,
                                                       device=dev))
     core, t_at3p = timed(lambda: M.encode_core_at3p_sharded(pcm3p, mesh,
                                                             gha_mask=7))
     every = [None] * MESH_RANKS
-    dist.all_gather_object(every, {"counts": counts, "t_at3": t_at3,
+    dist.all_gather_object(every, {"counts": launched, "t_at3": t_at3,
                                    "t_at1": t_at1, "t_at3p": t_at3p})
     if rank == 0:
         np.savez(os.path.join(out_dir, "out.npz"), at3=at3, at1_decode=dec,
@@ -1100,7 +1092,7 @@ def main():
     zero_counts()
     wl_f = rate_control.bisect_block(*c_args)
     torch.cuda.synchronize()
-    f_launches = rate_control.bisect_launches
+    f_launches = counts()["F"]
     assert f_launches > 0, f_launches
     wl_fp = rate_control.bisect_torch(*c_args)
     _, _, wl_c = rate_control.rate_control_block(*c_args, auto=False)
@@ -1298,8 +1290,8 @@ def main():
     units_dev = at1_pack.pack_device(at1_units(planes1))
     torch.cuda.synchronize()
     t1 = time.perf_counter() - t0
-    launches["at1_allocate_block"] = at1_alloc.launches
-    assert at1_alloc.launches > 0, at1_alloc.launches
+    launches["at1_allocate_block"] = counts()["E"]
+    assert counts()["E"] > 0, counts()["E"]
     n_units = AT1_STREAMS * CHANNELS * AT1_FRAMES
     units_host = at1_frame.pack({k: runtime.to_numpy(v)
                                  for k, v in at1_units(planes1).items()})
@@ -1309,7 +1301,7 @@ def main():
     log(f"[7 atrac1 real size] {AT1_STREAMS} x {CHANNELS} x {AT1_FRAMES} "
         f"sound units: encode + device pack {t1:.4f} s = {n_units / t1:.1f} "
         f"units/s; bytes equal the host packer's, sha256 {digest(units_host)} "
-        f"| {smi} | launches {at1_alloc.launches}")
+        f"| {smi} | launches {counts()['E']}")
 
     # --- 8. CLI on a 30 s WAV (chunked paths: > 1024 AT3 / 2048 AT1 frames)
     work = os.path.join(kernels.BUILD_DIR, "smoke")

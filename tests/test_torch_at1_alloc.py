@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from atracdenc_tpu.models.atrac1 import bitalloc as jba
+from atracdenc_tpu_torch import trace
 from atracdenc_tpu_torch.models.atrac1 import bitalloc, encoder
 from atracdenc_tpu_torch.ops import at1_alloc
 from atracdenc_tpu_torch.testing import assert_equal, cpu_setup, t
@@ -49,7 +50,7 @@ def test_allocate_equals_xla_and_pallas(const):
     ins = _random_inputs(3)
     idx, wl = at1_alloc.at1_allocate_block(*(t(x) for x in ins),
                                            bfu_idx_const=const)
-    assert at1_alloc.launches == 0
+    assert trace.counter("launch.at1_alloc") == 0
     for use_pallas in (False, True):
         idx_j, wl_j = jba.allocate(*(jnp.asarray(x) for x in ins),
                                    bfu_idx_const=const, use_pallas=use_pallas)

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from atracdenc_tpu_torch import kernels, runtime
+from atracdenc_tpu_torch import kernels, runtime, trace
 from atracdenc_tpu_torch.ops import at1_alloc, greedy, quant_cost, rate_control
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -213,9 +213,12 @@ def test_non_cpu_tensor_without_library_raises(monkeypatch, name):
         else:
             e = torch.zeros((3, 52), device=meta)
             at1_alloc.at1_allocate_block(e.int(), e, e[:, :3].bool(), e[:, 0])
-    assert quant_cost.launches == 0 and greedy.launches == 0 \
-        and rate_control.launches == 0 and at1_alloc.launches == 0
-    assert quant_cost.full_launches == 0 and rate_control.bisect_launches == 0
+    assert trace.counter("launch.quant_cost") == 0 \
+        and trace.counter("launch.greedy") == 0 \
+        and trace.counter("launch.rate_control") == 0 \
+        and trace.counter("launch.at1_alloc") == 0
+    assert trace.counter("launch.quant_full") == 0 \
+        and trace.counter("launch.bisect") == 0
 
 
 def test_cpu_route_takes_the_plain_version():
@@ -225,10 +228,10 @@ def test_cpu_route_takes_the_plain_version():
         (0.5 * np.random.default_rng(1).standard_normal((1, 32, 128))).astype(np.float32))
     err, vlc = quant_cost.quant_cost_plain(x, torch.ones((32, 128), dtype=torch.bool))
     assert err.shape == (1, 32, 8) and vlc.dtype == torch.int32
-    assert quant_cost.launches == 0
+    assert trace.counter("launch.quant_cost") == 0
     e = torch.full((2, 52), 1e-3)
     idx, wl = at1_alloc.at1_allocate_block(
         torch.full((2, 52), 40, dtype=torch.int32), e,
         torch.zeros((2, 3), dtype=torch.bool), torch.ones(2))
     assert idx.shape == (2,) and wl.shape == (2, 52) and wl.dtype == torch.int32
-    assert at1_alloc.launches == 0
+    assert trace.counter("launch.at1_alloc") == 0
