@@ -48,6 +48,9 @@ _SIGNATURES = {
     #  amount, boost_bits, boost_pos, n_boost, wl_out, idx_out, n,
     #  bfu_idx_const, flags_stride, loud_channels, loud_frames, stream)
     "atrac1_allocate": [_P] * 12 + [_I, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (values, value_bytes, widths, width_bytes, offsets, offset_bytes, out,
+    #  n_frames, k, total_bytes, stream)
+    "deposit_fields": [_P, _I, _P, _I, _P, _I, _P, _L, _I, _I, _P],
 }
 
 

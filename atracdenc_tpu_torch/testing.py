@@ -62,3 +62,43 @@ def assert_close(ref, got, name="", rtol=RTOL, atol=ATOL, peak=None):
     assert ref.shape == got.shape, f"{name}: shape {ref.shape} vs {got.shape}"
     assert ref.dtype == got.dtype, f"{name}: dtype {ref.dtype} vs {got.dtype}"
     np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol, err_msg=name)
+
+
+def deposit_case(seed, total_bytes, f=6, k=256):
+    """Fields for ``deposit_fields`` (values uint32, widths int32, offsets
+    int32 [f, k] numpy) with the layouts its routes could get wrong, and the
+    rows whose fields all fit in ``total_bytes`` (the ones a sequential
+    packer can take).
+
+    Each row's fields lie back to back from bit 0, widths 0 to 32, in a
+    shuffled column order; width-0 fields carry stray values and offsets.
+    Row 0 starts with a 31-bit and a 32-bit field (the second straddles
+    words 0 and 1 from bit 31) and stops at the frame's last bit or before;
+    row 1 ends exactly on it with a field as wide as fits; row 2 has a
+    field across the end and fields past it; row 3 lies wholly past the
+    end (past the sink word too); the other rows run on past the end."""
+    rng = np.random.default_rng(seed)
+    bits = 8 * total_bytes
+    widths = np.zeros((f, k), np.int64)
+    for r in range(f):
+        limit = bits if r < 2 else bits + 200
+        row = [31, 32] if r == 0 else []
+        while len(row) < k and sum(row) < limit:
+            row.append(int(rng.integers(0, 33)) if rng.random() > 0.2 else 0)
+        while sum(row) > limit or (r < 2 and sum(row) > bits):
+            row.pop()
+        if r == 1 and len(row) < k and sum(row) < bits:
+            row.append(min(32, bits - sum(row)))
+        widths[r, :len(row)] = row
+    offsets = np.zeros((f, k), np.int64)
+    np.cumsum(widths[:, :-1], axis=1, out=offsets[:, 1:])
+    offsets[3:4] += 40 * (bits + 64)
+    values = rng.integers(0, 1 << 32, (f, k), dtype=np.uint64)
+    gone = widths == 0
+    values[~gone] &= (np.uint64(1) << widths[~gone].astype(np.uint64)) \
+        - np.uint64(1)
+    offsets[gone] = rng.integers(0, 4 * bits + 64, int(gone.sum()))
+    perm = rng.permutation(k)
+    fits = (np.where(gone, 0, offsets + widths).max(axis=1) <= bits)
+    return (values[:, perm].astype(np.uint32), widths[:, perm].astype(np.int32),
+            offsets[:, perm].astype(np.int32), np.flatnonzero(fits))

@@ -4,10 +4,10 @@
 
 Phases (each asserts; any failure exits non-zero):
   1. device   — CUDA present; torch / CUDA versions, card name and power limit
-  2. build    — nvcc builds csrc/*.cu (kernels A, B, C, D, E, F) from this
-                checkout, one nvcc per source, all at once; prints ptxas's
-                registers, shared memory, stack and spills of every kernel
-                (A to F)
+  2. build    — nvcc builds csrc/*.cu (kernels A, B, C, D, E, F, G) from
+                this checkout, one nvcc per source, all at once; prints
+                ptxas's registers, shared memory, stack and spills of every
+                kernel (A to G)
   3. kernels  — each kernel against its plain PyTorch version on the inputs
                 its path gives it: A, B, C at the ATRAC3 main path's 64
                 streams x 2 ch x 256 frames (A vlc equal and err within 4
@@ -21,7 +21,12 @@ Phases (each asserts; any failure exits non-zero):
                 beside the launch floor, a one-element add_); prints a
                 SHA-256 of A's and of D's err and vlc and of E's bfu_idx
                 and wl, so that two builds run on one card can be held bit
-                against bit
+                against bit; G (the bit deposit, ``deposit_fields``) on the
+                fields of both packers tiled to the cells' shapes (ATRAC1's
+                65,536 units of 212 B, ATRAC3's two channel deposits of
+                32,768 frames), bytes equal to its plain version, timed
+                beside its bound (the field planes' bytes) and the plain
+                version, with a SHA-256 of its bytes
   4. golden   — tests/golden encodes on CUDA against the reference frames:
                 ATRAC3 identity floors 0.99, 0.98, 0.85, with the A + B
                 memo and again with the fused memo (kernel D); ATRAC1 0.93
@@ -68,9 +73,10 @@ Phases (each asserts; any failure exits non-zero):
                 GHA (mask 7), through ``encode_frames_bytes`` (encode +
                 device packer), warm, then timed three times; every kernel
                 counter zeroed just before and read just after (ATRAC3+ runs
-                none of A to F); the bytes equal encode_track + host
-                ``frame.pack`` stream by stream (cut to 4 streams when the
-                host part would pass 60 s), and their SHA-256; stream 0
+                none of A to F, and G once a call); the bytes equal
+                encode_track + host ``frame.pack`` stream by stream (cut to
+                4 streams when the host part would pass 60 s), and their
+                SHA-256; stream 0
                 decoded on CUDA within 1e-5 of its CPU decode, finite,
                 within +-1; one more encode under torch.profiler: device
                 busy ms, the top device kernels and the launch count
@@ -245,7 +251,8 @@ def bound(n_bytes, n_ops):
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
-# kernel -> its launch counter in the port's tracer, A to F
+# kernel -> its launch counter in the port's tracer, A to F (G's,
+# ``launch.deposit``, is read where its count is known: phases 6, 7, 11)
 COUNTERS = {"A": "launch.quant_cost", "B": "launch.greedy",
             "C": "launch.rate_control", "D": "launch.quant_full",
             "E": "launch.at1_alloc", "F": "launch.bisect"}
@@ -950,8 +957,9 @@ def main():
     from atracdenc_tpu_torch.models.atrac3p import encoder as at3p_encoder
     from atracdenc_tpu_torch.models.atrac3p import frame as at3p_frame
     from atracdenc_tpu_torch.tools import omainfo
-    from atracdenc_tpu_torch.ops import (at1_alloc, greedy, quant_cost,
-                                         rate_control)
+    from atracdenc_tpu_torch import trace
+    from atracdenc_tpu_torch.ops import (at1_alloc, bitdeposit, greedy,
+                                         quant_cost, rate_control)
     from atracdenc_tpu_torch.trace_encode import capture, cuda_ms, device_kernels
 
     # --- 1. device
@@ -971,7 +979,7 @@ def main():
     log(f"[2 build] {os.path.relpath(path, ROOT)} built in {build_s:.1f} s")
     for fn, use in kernels.ptxas_usage(report).items():
         if any(k in fn for k in ("quant_cost", "greedy_scan", "rate_control",
-                                 "bisect", "at1_allocate")):
+                                 "bisect", "at1_allocate", "deposit")):
             log(f"[2 build] ptxas {fn}: {use.get('registers')} registers, "
                 f"{use.get('smem', 0)} B shared memory, {use.get('stack')} B "
                 f"stack, {use.get('spill')} B spill stores")
@@ -1000,7 +1008,7 @@ def main():
         b_ms, b_by = bound(n_bytes, n_ops)
         rows[name] = {"name": name, "route": "cuda",
                       "source": f"atracdenc_tpu_torch/csrc/{src}",
-                      "replaces": f"atracdenc_tpu/ops/{rep}",
+                      "replaces": rep and f"atracdenc_tpu/ops/{rep}",
                       "max_abs_err": err, "ms": ms, "plain_ms": pms,
                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         return f"bound {b_ms:.4f} ms ({b_by})"
@@ -1131,6 +1139,38 @@ def main():
         f"plain {e_pms:.3f} ms, launch floor (one-element add_) "
         f"{floor_ms:.4f} ms, {e_bound} ({rounds} bisection rounds); "
         f"sha256(bfu_idx, wl) {digest(idx_k, wl_k)}")
+
+    # G, the bit deposit (replaces no TPU kernel), on the packers' fields
+    # tiled to the cells' shapes: ATRAC1 64 x 2 x 512 units, ATRAC3 64 x 512
+    # frames a channel (two deposits a call)
+    g_legs = {
+        "at1": [a for a, _ in capture(
+            [(at1_pack, "deposit_fields", "G")], lambda: at1_pack.pack_device(
+                at1_units(at1_encoder.encode_frames(x1))))["G"]],
+        "at3": [a for a, _ in capture(
+            [(device_pack, "deposit_fields", "G")],
+            lambda: device_pack.pack_device_batch(
+                encoder.encode_frames(x, **default), 384))["G"]]}
+    for label, units in (("at1", 64 * 2 * 512), ("at3", 64 * 512)):
+        g_args = [tuple(t.repeat(units // t.shape[0], 1) for t in a[:3]) + a[3:]
+                  for a in g_legs.pop(label)]
+        outs = [bitdeposit.deposit_fields(*a) for a in g_args]
+        for a, out in zip(g_args, outs):
+            assert torch.equal(out, bitdeposit.deposit_fields_torch(*a)), \
+                f"kernel G ({label}) differs from its plain version"
+        g_ms = cuda_ms(lambda: [bitdeposit.deposit_fields(*a) for a in g_args],
+                       20, 3)
+        g_pms = cuda_ms(lambda: [bitdeposit.deposit_fields_torch(*a)
+                                 for a in g_args], 2, 1)
+        g_bound = row(f"deposit_fields.{label}", "bitdeposit.cu", None, 0.0,
+                      g_ms, g_pms, sum(nbytes(*a[:3]) for a in g_args)
+                      + nbytes(*outs), 0)
+        log(f"[3 kernels] G deposit_fields ({label}) "
+            f"{[(tuple(a[0].shape), str(a[0].dtype), a[3]) for a in g_args]}: "
+            f"bytes equal its plain version; kernel {g_ms:.4f} ms, plain "
+            f"{g_pms:.3f} ms, {g_bound} a call; sha256 {digest(*outs)}")
+        del g_args, outs
+        torch.cuda.empty_cache()
     del calls, b_calls, a_args, c_args, d_args, e_args, outk
     torch.cuda.empty_cache()
 
@@ -1247,8 +1287,10 @@ def main():
     t_dev = time.perf_counter() - t0
     c6 = counts()
     launches = {"quant_cost_plain": c6["A"], "greedy_scan": c6["B"],
-                "rate_control_block": c6["C"], "bisect_block": f_launches}
+                "rate_control_block": c6["C"], "bisect_block": f_launches,
+                "deposit_fields.at3": trace.counter("launch.deposit")}
     assert all(c6[k] > 0 for k in "ABC") and c6["D"] == 0, c6
+    assert launches["deposit_fields.at3"] == 2, launches    # one a channel
     fr_dev = runtime.to_numpy(dev_bytes)
     t_all_dev = time.perf_counter() - t0
     # encode + host packer, and the device packer alone on the same planes
@@ -1291,7 +1333,9 @@ def main():
     torch.cuda.synchronize()
     t1 = time.perf_counter() - t0
     launches["at1_allocate_block"] = counts()["E"]
+    launches["deposit_fields.at1"] = trace.counter("launch.deposit")
     assert counts()["E"] > 0, counts()["E"]
+    assert launches["deposit_fields.at1"] == 1, launches
     n_units = AT1_STREAMS * CHANNELS * AT1_FRAMES
     units_host = at1_frame.pack({k: runtime.to_numpy(v)
                                  for k, v in at1_units(planes1).items()})
@@ -1486,6 +1530,7 @@ def main():
         t11.append(time.perf_counter() - t0)
     c11 = counts()
     assert not any(c11.values()), c11        # ATRAC3+ has no TPU kernel
+    assert trace.counter("launch.deposit") == 3, "G: one deposit a call"
     fr11 = runtime.to_numpy(b11)
     assert fr11.shape == (s11, f11, 2048), fr11.shape
     t0 = time.perf_counter()

@@ -13,8 +13,9 @@ from atracdenc_tpu.ops.bitdeposit import deposit_fields as jax_deposit
 from atracdenc_tpu.utils.bitpack import _pack_frames_np
 from atracdenc_tpu_torch.models.atrac1 import device_pack as dp1
 from atracdenc_tpu_torch.models.atrac3 import device_pack as dp3
+from atracdenc_tpu_torch import trace
 from atracdenc_tpu_torch.ops.bitdeposit import deposit_fields
-from atracdenc_tpu_torch.testing import assert_equal, cpu_setup
+from atracdenc_tpu_torch.testing import assert_equal, cpu_setup, deposit_case
 from test_device_pack import _at3_planes
 
 cpu_setup()
@@ -35,24 +36,40 @@ def _random_fields(seed, f=11, k=257):
     return values, widths, offsets.astype(np.int32)
 
 
-@pytest.mark.parametrize("total_bytes", [1600, 212])
-def test_deposit_fields_vs_jax(total_bytes):
+@pytest.mark.parametrize("total_bytes,case", [
+    pytest.param(1600, "random", id="1600"), pytest.param(212, "random", id="212"),
+    pytest.param(212, "edges", id="edges-212"),
+    pytest.param(256, "edges", id="edges-256"),
+    pytest.param(7, "edges", id="edges-7"), pytest.param(1, "edges", id="edges-1")])
+def test_deposit_fields_vs_jax(total_bytes, case):
     """Random fields in a shuffled order; at 212 bytes most fields lie past
-    the frame and must be dropped as the JAX one-hot drops them."""
-    values, widths, offsets = _random_fields(0)
-    perm = np.random.default_rng(1).permutation(values.shape[1])
-    values, widths, offsets = values[:, perm], widths[:, perm], offsets[:, perm]
+    the frame and must be dropped as the JAX one-hot drops them.  The edge
+    cases (``testing.deposit_case``): widths up to 32, a 32-bit field from
+    bit 31 across two words, a frame filled to its last bit, fields partly
+    and wholly past the end, and frames of 1 and 7 bytes (not whole words).
+    CPU tensors take the plain version and launch nothing."""
+    if case == "random":
+        values, widths, offsets = _random_fields(0)
+        perm = np.random.default_rng(1).permutation(values.shape[1])
+        values, widths, offsets = (values[:, perm], widths[:, perm],
+                                   offsets[:, perm])
+        fits = np.arange(len(values)) \
+            if total_bytes * 8 >= int((offsets + widths).max()) else []
+    else:
+        values, widths, offsets, fits = deposit_case(3, total_bytes)
     ref = np.asarray(jax_deposit(jnp.asarray(values), jnp.asarray(widths),
                                  jnp.asarray(offsets), total_bytes))
     got = deposit_fields(torch.from_numpy(values.astype(np.int64)),
                          torch.from_numpy(widths), torch.from_numpy(offsets),
                          total_bytes)
+    assert trace.counter("launch.deposit") == 0
     assert_equal(ref, got, "deposit_fields")
-    if total_bytes * 8 >= int((offsets + widths).max()):
-        order = np.argsort(offsets, axis=1, kind="stable")
-        host = _pack_frames_np(np.take_along_axis(values, order, 1),
-                               np.take_along_axis(widths, order, 1), total_bytes)
-        assert_equal(host, got, "deposit_fields vs host")
+    if len(fits):
+        v, w, o = values[fits], widths[fits], offsets[fits]
+        order = np.argsort(o, axis=1, kind="stable")
+        host = _pack_frames_np(np.take_along_axis(v, order, 1),
+                               np.take_along_axis(w, order, 1), total_bytes)
+        assert_equal(host, got[fits], "deposit_fields vs host")
 
 
 @pytest.mark.parametrize("js,tonal,mono", [

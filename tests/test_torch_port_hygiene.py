@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from atracdenc_tpu_torch import kernels, runtime, trace
-from atracdenc_tpu_torch.ops import at1_alloc, greedy, quant_cost, rate_control
+from atracdenc_tpu_torch.ops import (at1_alloc, bitdeposit, greedy, quant_cost,
+                                     rate_control)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -186,7 +187,7 @@ def _missing_library():
 
 @pytest.mark.parametrize("name", ["quant_cost", "greedy", "rate_control",
                                   "at1_alloc", "quant_cost_full",
-                                  "bisect_block"])
+                                  "bisect_block", "deposit"])
 def test_non_cpu_tensor_without_library_raises(monkeypatch, name):
     """A tensor that is not on the CPU goes to the kernel, never to the
     plain version: with the library missing the wrapper raises (meta
@@ -210,9 +211,13 @@ def test_non_cpu_tensor_without_library_raises(monkeypatch, name):
                          if name == "rate_control" else name)
             fn(f, f.bool(), i, f[:, 0], i[:, 0], i[:, 0], m, m.int(), m.int(),
                i, i, i, i, m.int())
+        elif name == "deposit":
+            z = torch.zeros((3, 40), dtype=torch.int64, device=meta)
+            bitdeposit.deposit_fields(z, z, z, 212)
         else:
             e = torch.zeros((3, 52), device=meta)
             at1_alloc.at1_allocate_block(e.int(), e, e[:, :3].bool(), e[:, 0])
+    assert trace.counter("launch.deposit") == 0
     assert trace.counter("launch.quant_cost") == 0 \
         and trace.counter("launch.greedy") == 0 \
         and trace.counter("launch.rate_control") == 0 \
@@ -235,3 +240,18 @@ def test_cpu_route_takes_the_plain_version():
         torch.zeros((2, 3), dtype=torch.bool), torch.ones(2))
     assert idx.shape == (2,) and wl.shape == (2, 52) and wl.dtype == torch.int32
     assert trace.counter("launch.at1_alloc") == 0
+    f = torch.full((2, 5), 8, dtype=torch.int32)
+    units = bitdeposit.deposit_fields(f, f, torch.arange(0, 40, 8).expand(2, 5), 5)
+    assert torch.equal(units, torch.full((2, 5), 8, dtype=torch.uint8))
+    assert trace.counter("launch.deposit") == 0
+
+
+def test_kernel_sources_and_entries():
+    """Every csrc/*.cu goes into the library (the bit deposit's too), and
+    every entry point ``kernels.py`` binds is defined in one of them."""
+    names = {os.path.basename(s) for s in kernels.sources()}
+    assert {"bitdeposit.cu", "at1_alloc.cu", "quant_cost.cu"} <= names
+    assert names == set(os.listdir(kernels.CSRC)) - {"__pycache__"}
+    text = "".join(open(s).read() for s in kernels.sources())
+    for entry in kernels._SIGNATURES:
+        assert f'extern "C" int {entry}(' in text, entry

@@ -17,6 +17,7 @@ from atracdenc_tpu_torch.models.atrac1 import device_pack as pack1
 from atracdenc_tpu_torch.models.atrac1 import encoder as enc1
 from atracdenc_tpu_torch.models.atrac3 import device_pack as pack3
 from atracdenc_tpu_torch.models.atrac3 import encoder as enc3
+from atracdenc_tpu_torch.ops import bitdeposit
 from atracdenc_tpu_torch.tools import transcode
 from portbench import manifest, program_trace
 
@@ -156,10 +157,14 @@ def test_summary_takes_device_self_time_and_counts_by_span():
         "total": 7, "by_span": {"p": 1, "k": 2}}
 
 
-def test_host_sync_counted_under_the_innermost_span():
+def test_host_sync_counted_under_the_innermost_span(monkeypatch):
     """A meta tensor stands in for a card's tensor here: it is not on the
     CPU, so reading it on the host counts (the copy out of it then
-    raises), as do the ATRAC1 packer's tables made from host data."""
+    raises), as do the ATRAC1 packer's tables made from host data.  The
+    packer's deposit takes its plain version (a meta tensor would go to
+    the kernel, which needs a card)."""
+    monkeypatch.setattr(pack1, "deposit_fields",
+                        bitdeposit.deposit_fields_torch)
     meta = torch.device("meta")
     trace.enable()
     with trace.span("outer"):
