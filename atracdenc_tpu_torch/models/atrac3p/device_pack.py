@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from atracdenc_tpu_torch import trace
 from atracdenc_tpu_torch.ops.bitdeposit import deposit_fields
 from . import frame as host_frame
 from . import tables as T
@@ -62,9 +63,46 @@ def _npwr_table():
     return out
 
 
+def _wordlen_section_bits():
+    """([33], [33]) ch0/ch1 wordlen-section bits per numQU, summed from the
+    packer's own field widths (TWordLenEncoder, at3p_bitstream.cpp:156-247)."""
+    ch0 = np.zeros(33, np.int64)
+    ch1 = np.zeros(33, np.int64)
+    for nq in range(1, 33):
+        ch0[nq] = sum(w for _, w in host_frame._wl_fields(nq))
+        ch1[nq] = sum(w for _, w in host_frame._wl_fields_ch1(nq))
+    return ch0, ch1
+
+
+_WL_BITS_CH0, _WL_BITS_CH1 = _wordlen_section_bits()
+
+
+def const_bits(channels):
+    """[33] per-numQU section bits that don't depend on the spectra."""
+    nq = np.arange(33)
+    bits = np.zeros(33, np.int64)
+    bits += 5 + 1                                   # TConfigure
+    bits += _WL_BITS_CH0
+    if channels == 2:
+        bits += _WL_BITS_CH1
+    bits += channels * (2 + 6 * nq)                 # TSfIdx
+    bits += 1 + channels * (1 + 2 + 1 + 3 * nq)     # EncodeCodeTab (full table)
+    pwr = T.SUBBAND_TO_NUM_POWGRPS[T.QU_TO_SUBBAND[np.maximum(nq, 1) - 1]]
+    bits += channels * 4 * pwr                      # power-comp stubs
+    if channels == 2:
+        bits += 2                                   # swap/negate flags
+    bits += channels * 1                            # window shape (all sine)
+    bits += channels * 1                            # gain comp
+    bits += 1                                       # no tonal block
+    bits += 1 + 2                                   # no noise + terminator
+    return bits
+
+
 @lru_cache(maxsize=None)
 def _table(name, dev):
-    """A host table as a tensor on ``dev``, built once per device."""
+    """A host table as a tensor on ``dev``, built once per device: the
+    packer's and the encoder's (the VLC costing's shifts and code lengths,
+    the numQU shrink's candidates and constant bits)."""
     if name == "tone_bands":
         a = np.stack([T.TONE_BANDS_CODE, T.TONE_BANDS_LEN])
     elif name == "npwr":
@@ -73,6 +111,14 @@ def _table(name, dev):
         a = np.asarray(_POW2, np.int32)
     elif name[0] == "spec":
         a = np.stack([T.SPEC_CODE[name[1]], T.SPEC_LEN[name[1]]])
+    elif name[0] == "shifts":                 # ("shifts", bits, nc)
+        a = name[1] * np.arange(name[2], dtype=np.int32)
+    elif name == "num_qu":                    # the shrink's candidates
+        a = np.asarray([32] + list(range(28, 0, -1)), np.int32)
+    elif name[0] == "const_bits":             # ("const_bits", channels)
+        a = const_bits(name[1]).astype(np.int32)
+    elif name == "code_tab":                  # widths, offsets of its header
+        a = np.asarray([[1, 2, 1], [0, 1, 3]], np.int32)
     else:                                     # ("nq", channels)
         return tuple(torch.as_tensor(x, device=dev)
                      for x in _nq_tables(name[1]))
@@ -108,6 +154,7 @@ def _qu_classes():
     return classes
 
 
+@trace.span("spectrum_fields")
 def _spec_group_fields(mant, spec_tab):
     """Merged spectrum fields for all 32 QUs of one channel.
 
@@ -148,8 +195,7 @@ def _spec_group_fields(mant, spec_tab):
                 after = (nz[..., None, :] * later).sum(-1)
                 signpack = ((grp < 0).to(torch.int64) << after).sum(-1)
                 sw = nz.sum(-1)
-            shifts = torch.as_tensor(bits * np.arange(nc), device=dev)
-            val = (t << shifts).sum(-1)          # [N, Q, ncodes]
+            val = (t << _table(("shifts", bits, nc), dev)).sum(-1)
 
             # codebook lookup: rows (code, len) of the table, gathered
             cl = _table(("spec", tab_idx), dev)[:, val]
@@ -193,6 +239,7 @@ def _sb_flags_fields(flags, nb):
     return vals.to(torch.int64), wids.to(torch.int32)
 
 
+@trace.span("tonal_fields")
 def tonal_fields_device(tones, channels):
     """Tonal-block fields with explicit in-block offsets.
 
@@ -357,6 +404,7 @@ def tonal_fields_device(tones, channels):
 
 # --- frame assembly --------------------------------------------------------
 
+@trace.span("at3p.pack")
 def pack_device(planes, channels):
     """Device counterpart of frame.pack: planes -> [F, 2048] uint8.
 
@@ -400,8 +448,7 @@ def pack_device(planes, channels):
     # code-table section (useFullTable=1)
     emit(full(1, 1), full(1, 1), pos)
     pos = pos + 1
-    ct_w = torch.as_tensor([1, 2, 1], dtype=torch.int32, device=dev)
-    ct_o = torch.as_tensor([0, 1, 3], dtype=torch.int32, device=dev)
+    ct_w, ct_o = _table("code_tab", dev)
     for ch in range(channels):
         emit(full(3, 0), ct_w.expand(f, 3), pos[:, None] + ct_o)
         pos = pos + 4

@@ -21,12 +21,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from atracdenc_tpu_torch import runtime
+from atracdenc_tpu_torch import runtime, trace
 from atracdenc_tpu_torch.ops import scale as scale_ops
 from . import tables as T
 from . import pqf
 from . import gha
-from .device_pack import pack_device, tonal_fields_device, _qu_classes
+from .device_pack import pack_device, tonal_fields_device, _qu_classes, _table
 from .mdct import mdct_frames
 
 CHUNK_LEFT = 4      # context frames that pin every cross-frame coupling
@@ -40,11 +40,6 @@ def _consts(dev):
     return {"mask": torch.as_tensor(T.GATHER_MASK, device=dev),
             "scale": torch.as_tensor(T.SCALE_TABLE, device=dev),
             "inv_mant": torch.as_tensor(inv_mant, device=dev)[:, None]}
-
-
-@lru_cache(maxsize=None)
-def _spec_len(tab_idx, nsyms, dev):
-    return torch.as_tensor(T.SPEC_LEN[tab_idx, :nsyms], device=dev)
 
 
 def band_frames(pcm):
@@ -83,52 +78,15 @@ def _qu_table_cost(m, tab_idx):
     else:
         t = torch.abs(grp)
         sign_bits = (grp != 0).sum((-1, -2), dtype=torch.int32)
-    shifts = torch.as_tensor(bits * np.arange(nc), dtype=torch.int32,
-                             device=m.device)
-    val = (t << shifts).sum(-1, dtype=torch.int32)        # [..., Q, ncodes]
+    val = (t << _table(("shifts", bits, nc), m.device)).sum(
+        -1, dtype=torch.int32)                            # [..., Q, ncodes]
     nsyms = 1 << (bits * nc)
-    lens = _spec_len(tab_idx, nsyms, m.device)
+    lens = _table(("spec", tab_idx), m.device)[1]         # SPEC_LEN[tab_idx]
     inside = (val >= 0) & (val < nsyms)
     looked = lens[torch.clamp(val, 0, nsyms - 1).long()]
     code_bits = torch.where(inside, looked, 0).sum(-1, dtype=torch.int32)
     group_bits = 0 if gs == 1 else ncodes // gs
     return code_bits + sign_bits + group_bits
-
-
-def _wordlen_section_bits():
-    """([33], [33]) ch0/ch1 wordlen-section bits per numQU, summed from the
-    packer's own field widths (TWordLenEncoder, at3p_bitstream.cpp:156-247)."""
-    from . import frame as fr
-    ch0 = np.zeros(33, np.int64)
-    ch1 = np.zeros(33, np.int64)
-    for nq in range(1, 33):
-        ch0[nq] = sum(w for _, w in fr._wl_fields(nq))
-        ch1[nq] = sum(w for _, w in fr._wl_fields_ch1(nq))
-    return ch0, ch1
-
-
-_WL_BITS_CH0, _WL_BITS_CH1 = _wordlen_section_bits()
-
-
-def _const_bits(channels):
-    """[33] per-numQU section bits that don't depend on the spectra."""
-    nq = np.arange(33)
-    bits = np.zeros(33, np.int64)
-    bits += 5 + 1                                   # TConfigure
-    bits += _WL_BITS_CH0
-    if channels == 2:
-        bits += _WL_BITS_CH1
-    bits += channels * (2 + 6 * nq)                 # TSfIdx
-    bits += 1 + channels * (1 + 2 + 1 + 3 * nq)     # EncodeCodeTab (full table)
-    pwr = T.SUBBAND_TO_NUM_POWGRPS[T.QU_TO_SUBBAND[np.maximum(nq, 1) - 1]]
-    bits += channels * 4 * pwr                      # power-comp stubs
-    if channels == 2:
-        bits += 2                                   # swap/negate flags
-    bits += channels * 1                            # window shape (all sine)
-    bits += channels * 1                            # gain comp
-    bits += 1                                       # no tonal block
-    bits += 1 + 2                                   # no noise + terminator
-    return bits
 
 
 def _frame_slice(v, ax, sl):
@@ -155,26 +113,29 @@ def _core_impl(pcm, gha_mask, wb_refine, left, right, zero_tail,
     fe = (pcm.shape[-1] - hist) // T.NUM_SAMPLES    # left + f + right
     f = fe - left - right
 
-    bands = pqf.analysis(pcm, with_history=with_history)
-    bands = bands.reshape(s, c, 16, fe, 128).transpose(2, 3)
-    if zero_tail and right:
-        bands[:, :, fe - 1] = 0.0                   # no frame past track end
+    with trace.span("pqf_analysis"):
+        bands = pqf.analysis(pcm, with_history=with_history)
+        bands = bands.reshape(s, c, 16, fe, 128).transpose(2, 3)
+        if zero_tail and right:
+            bands[:, :, fe - 1] = 0.0               # no frame past track end
     tone_out = None
     if gha_mask is None:
         resid = bands
     else:
-        if gha_mask & 8:
-            raw = pcm[..., hist:].reshape(s, c, fe, T.NUM_SAMPLES).clone()
-            if zero_tail and right:
-                raw[:, :, fe - 1] = 0.0
-            tone_planes = gha.extract_wideband(bands, raw,
-                                               refine_raw=bool(wb_refine))
-        else:
-            tone_planes = gha.extract(bands)
-        src = bands if (gha_mask & 1) else torch.zeros_like(bands)
-        resid = gha.subtract(src, tone_planes)
-        if not (gha_mask & 4):
-            resid = torch.zeros_like(resid)
+        with trace.span("gha_extract"):
+            if gha_mask & 8:
+                raw = pcm[..., hist:].reshape(s, c, fe, T.NUM_SAMPLES).clone()
+                if zero_tail and right:
+                    raw[:, :, fe - 1] = 0.0
+                tone_planes = gha.extract_wideband(bands, raw,
+                                                   refine_raw=bool(wb_refine))
+            else:
+                tone_planes = gha.extract(bands)
+        with trace.span("gha_subtract"):
+            src = bands if (gha_mask & 1) else torch.zeros_like(bands)
+            resid = gha.subtract(src, tone_planes)
+            if not (gha_mask & 4):
+                resid = torch.zeros_like(resid)
         if gha_mask & 2:
             # output alignment (one-frame tonal-block delay,
             # at3p.cpp:128-131,173-177): out frame p carries tone frame p-1
@@ -189,38 +150,45 @@ def _core_impl(pcm, gha_mask, wb_refine, left, right, zero_tail,
                     tone_out[key] = F.pad(_frame_slice(v, ax, slice(None, -1)),
                                           pad)
     # one-frame delay: output frame p carries content frame p-1 (LOOK_AHEAD)
-    if left:
-        # res window [left-1, left+f) plus one MDCT warm-up frame whose
-        # stored half seeds position left-1's overlap; drop its output
-        res_win = resid[:, :, left - 2: left + f - 1]
-        specs = mdct_frames(res_win * T.RESIDUAL_SCALE)[:, :, 1:]
-    else:
-        res = F.pad(resid[:, :, :-1], (0, 0, 0, 0, 1, 0))
-        specs = mdct_frames(res * T.RESIDUAL_SCALE)  # [S, C, F, 2048]
+    with trace.span("mdct"):
+        if left:
+            # res window [left-1, left+f) plus one MDCT warm-up frame whose
+            # stored half seeds position left-1's overlap; drop its output
+            res_win = resid[:, :, left - 2: left + f - 1]
+            specs = mdct_frames(res_win * T.RESIDUAL_SCALE)[:, :, 1:]
+        else:
+            res = F.pad(resid[:, :, :-1], (0, 0, 0, 0, 1, 0))
+            specs = mdct_frames(res * T.RESIDUAL_SCALE)  # [S, C, F, 2048]
+        blocks = gather_qu_blocks(specs)                 # [S, C, F, 32, 128]
 
-    return (*_spectral_planes(specs), tone_out)
+    return (*_block_planes(blocks), tone_out)
 
 
 def _spectral_planes(specs):
     """[..., 2048] MDCT spectra -> (sfi, mant, spec_tab, spec_bits), each
     [..., 32]-shaped (mant [..., 32, 128]): block-floating scale, the fixed
     wordlens' mantissas and the best of the 8 spectrum tables per QU."""
-    k = _consts(specs.device)
-    blocks = gather_qu_blocks(specs)                # [..., 32, 128]
-    sfi, scaled, _ = scale_ops.scale_blocks(blocks, k["mask"], k["scale"])
-    mant = torch.round(scaled * k["inv_mant"]).to(torch.int32)
-    mant = torch.where(k["mask"], mant, 0)
+    return _block_planes(gather_qu_blocks(specs))
 
-    # best-of-8 spectrum table per QU (strict less -> first minimum), over
-    # the QU runs of one (wordlen, block length)
-    costs = []
-    for q0, q1, wl, ln in _qu_classes():
-        m = mant[..., q0:q1, :ln]
-        costs.append(torch.stack([_qu_table_cost(m, 7 * i + wl - 1)
-                                  for i in range(8)], dim=-1))
-    cost = torch.cat(costs, dim=-2)                 # [..., 32, 8]
-    spec_tab = torch.argmin(cost, dim=-1).to(torch.int32)
-    spec_bits = torch.amin(cost, dim=-1)            # [..., 32]
+
+def _block_planes(blocks):
+    """``_spectral_planes`` of spectra already laid out as QU blocks."""
+    k = _consts(blocks.device)
+    sfi, scaled, _ = scale_ops.scale_blocks(blocks, k["mask"], k["scale"])
+    with trace.span("spectral_planes"):
+        mant = torch.round(scaled * k["inv_mant"]).to(torch.int32)
+        mant = torch.where(k["mask"], mant, 0)
+
+        # best-of-8 spectrum table per QU (strict less -> first minimum),
+        # over the QU runs of one (wordlen, block length)
+        costs = []
+        for q0, q1, wl, ln in _qu_classes():
+            m = mant[..., q0:q1, :ln]
+            costs.append(torch.stack([_qu_table_cost(m, 7 * i + wl - 1)
+                                      for i in range(8)], dim=-1))
+        cost = torch.cat(costs, dim=-2)             # [..., 32, 8]
+        spec_tab = torch.argmin(cost, dim=-1).to(torch.int32)
+        spec_bits = torch.amin(cost, dim=-1)        # [..., 32]
     return sfi, mant, spec_tab, spec_bits
 
 
@@ -323,26 +291,61 @@ def _gha_mask_of(use_gha):
 
 def encode_frames_chunk(pcm, state=None, next_head=None, use_gha=True,
                         wb_refine=False, device=None):
-    """Exact chunked encode: pcm [C, k*2048] content samples (numpy), state
-    = carry from the previous chunk (None at track start), next_head
-    [C, 2048] = the next chunk's first frame (None at track end).  Returns
-    (planes, state); concatenated chunk planes equal encode_track's on the
-    whole padded track."""
+    """``encode_chunk_device`` for one stream given as numpy: pcm [C,
+    k*2048] content samples, state = carry from the previous chunk (None at
+    track start), next_head [C, 2048] = the next chunk's first frame (None
+    at track end).  Returns (planes as numpy, state on the device);
+    concatenated chunk planes equal encode_track's on the whole padded
+    track."""
     dev = runtime.device(device)
-    pcm = np.asarray(pcm, np.float32)
-    c = pcm.shape[0]
+    x = runtime.to_torch(np.asarray(pcm, np.float32), dev)[None]
+    nxt = (None if next_head is None else
+           runtime.to_torch(np.asarray(next_head, np.float32), dev)[None])
+    planes, state = encode_chunk_device(x, state, nxt, _gha_mask_of(use_gha),
+                                        wb_refine)
+    return _planes_numpy(planes), state
+
+
+def _planes_numpy(planes):
+    """Planes (tones as a nested dict) -> the same dict of numpy arrays."""
+    return {k: ({tk: runtime.to_numpy(tv) for tk, tv in v.items()}
+                if k == "tones" else runtime.to_numpy(v))
+            for k, v in planes.items()}
+
+
+@trace.span("at3p.encode_chunk")
+def encode_chunk_device(pcm, state=None, next_head=None, gha_mask=7,
+                        wb_refine=None):
+    """Exact chunked encode of a batch of tracks on pcm's device: pcm
+    [S, C, k*2048]; state = the previous chunk's carry ``{"pcm_hist": [S,
+    C, OVERLAP + CHUNK_LEFT * 2048]}`` (None at the tracks' start);
+    next_head [S, C, 2048] = the next chunk's first frame (None at their
+    end).  Returns (planes, state): the planes of ``_finish_planes_device``
+    with the streams' frames stream-major in one frame axis (num_qu [S*k],
+    sfi [C, S*k, 32], ...).  Concatenated chunks equal the whole-track
+    core's frames, and nothing is read back to the host."""
+    s, c, t = pcm.shape
     hist_len = pqf.OVERLAP + CHUNK_LEFT * T.NUM_SAMPLES
-    hist = (np.zeros((c, hist_len), np.float32) if state is None
+    hist = (pcm.new_zeros((s, c, hist_len)) if state is None
             else state["pcm_hist"])
-    tail = (np.zeros((c, T.NUM_SAMPLES), np.float32) if next_head is None
-            else np.asarray(next_head, np.float32))
-    ext = np.concatenate([hist, pcm, tail], axis=1)
-    core = _core_impl(runtime.to_torch(ext, dev)[None], _gha_mask_of(use_gha),
-                      wb_refine, CHUNK_LEFT, CHUNK_RIGHT, next_head is None,
-                      True)
-    planes = _finish_planes(_drop_streams(core), c)
-    new_state = {"pcm_hist": ext[:, pcm.shape[1]: hist_len + pcm.shape[1]]}
-    return planes, new_state
+    tail = (pcm.new_zeros((s, c, T.NUM_SAMPLES)) if next_head is None
+            else next_head)
+    ext = torch.cat([hist, pcm, tail], dim=-1)
+    core = _core_impl(ext, gha_mask, wb_refine, CHUNK_LEFT, CHUNK_RIGHT,
+                      next_head is None, True)
+    with trace.span("finish_planes"):
+        planes = _finish_planes_device(_fold_streams(core), c)
+    return planes, {"pcm_hist": ext[..., t:t + hist_len].clone()}
+
+
+def encode_chunk_bytes(pcm, state=None, next_head=None, gha_mask=7,
+                       wb_refine=None):
+    """``encode_chunk_device`` and the device packer: -> (uint8 [S, k,
+    2048] frames on pcm's device, state)."""
+    planes, state = encode_chunk_device(pcm, state, next_head, gha_mask,
+                                        wb_refine)
+    frames = pack_device(planes, pcm.shape[1])
+    return frames.reshape(pcm.shape[0], -1, T.FRAME_BYTES), state
 
 
 def encode_track(pcm, use_gha=True, wb_refine=False, chunk_frames=512,
@@ -389,7 +392,7 @@ def encode_track(pcm, use_gha=True, wb_refine=False, chunk_frames=512,
 
     core = _encode_core(runtime.to_torch(pcm, dev),
                         gha_mask=_gha_mask_of(use_gha), wb_refine=wb_refine)
-    out = _finish_planes(core, c)
+    out = _planes_numpy(_finish_planes_device(core, c))
     if progress is not None:
         progress(100)
     return out
@@ -400,15 +403,16 @@ def _num_qu(total):
     of the candidates 32, 28, 27, ..., 1 the first whose total [F, 33]
     fits 2048*8-3 bits; 1 when none does."""
     budget = T.FRAME_BYTES * 8 - 3
-    cand = torch.as_tensor([32] + list(range(28, 0, -1)), device=total.device)
+    cand = _table("num_qu", total.device)
     fits = total[:, cand] <= budget                          # [F, 30]
     first = torch.argmax(fits.to(torch.int32), dim=-1)       # first True
     return torch.where(fits.any(-1), cand[first], 1).to(torch.int32)
 
 
 def _finish_planes_device(core, c):
-    """Device counterpart of _finish_planes: tone wire ordering, tonal
-    section budget and the NumQuantUnits shrink, as tensors."""
+    """The tail of every path (core outputs [C, F, ...] -> planes): the
+    tones' wire order (ascending frequencies per band), the tonal-section
+    bits and the NumQuantUnits shrink, as tensors on the core's device."""
     sfi, mant, spec_tab, spec_bits, tone_out = core
     f = sfi.shape[1]
     tones = None
@@ -421,8 +425,7 @@ def _finish_planes_device(core, c):
     else:
         tonal_bits = torch.zeros((f,), dtype=torch.int32, device=sfi.device)
 
-    const_bits = torch.as_tensor(_const_bits(c), dtype=torch.int32,
-                                 device=sfi.device)
+    const_bits = _table(("const_bits", c), sfi.device)
     spec_bits = spec_bits.to(torch.int32)
     cum = F.pad(torch.cumsum(spec_bits, dim=-1, dtype=torch.int32), (1, 0))
     total = const_bits[None] + cum.sum(0, dtype=torch.int32) \
@@ -445,49 +448,6 @@ def encode_frames_bytes(pcm, channels, gha_mask=7, wb_refine=None):
     planes = _finish_planes_device(_fold_streams(core), channels)
     frames = pack_device(planes, channels)
     return frames.reshape(s, -1, T.FRAME_BYTES) if had else frames
-
-
-def _finish_planes(core, c):
-    """Host tail shared by the whole-track and chunked paths: wire ordering
-    of the tones, tonal-section bit costs, and the NumQuantUnits shrink."""
-    sfi, mant, spec_tab, spec_bits, tone_out = core
-    dev = sfi.device
-    sfi, mant, spec_tab, spec_bits = (
-        runtime.to_numpy(x) for x in (sfi, mant, spec_tab, spec_bits))
-    tones = None
-    if tone_out is not None:
-        tones = {k: runtime.to_numpy(v) for k, v in tone_out.items()}
-        # wire order wants ascending frequencies per band
-        order = np.argsort(
-            np.where(tones["valid"], tones["freq"], 1 << 20), axis=-1)
-        tones = {k: (np.take_along_axis(v, order, axis=-1)
-                     if v.ndim == 4 else v)
-                 for k, v in tones.items()}
-        # tonal-block bits plane-wise on the device (device_pack's widths)
-        tonal_bits = runtime.to_numpy(tonal_fields_device(
-            {k: runtime.to_torch(v, dev) for k, v in tones.items()}, c)[3]
-        ).astype(np.int64)
-    else:
-        tonal_bits = np.zeros(sfi.shape[1], np.int64)
-
-    # NumQuantUnits shrink (CheckFrameDone, at3p_bitstream.cpp:529-541):
-    # candidates 32, 28, 27, ... 1; first whose total fits 2048*8-3 bits
-    budget = T.FRAME_BYTES * 8 - 3
-    const_bits = _const_bits(c)
-    cum = np.concatenate([np.zeros_like(spec_bits[..., :1]),
-                          np.cumsum(spec_bits, axis=-1)], axis=-1)  # [C,F,33]
-    total = const_bits[None] + cum.sum(axis=0) + tonal_bits[:, None]
-    candidates = [32] + list(range(28, 0, -1))
-    num_qu = np.full(total.shape[0], 1, np.int32)
-    chosen = np.zeros(total.shape[0], bool)
-    for nq in candidates:
-        ok = ~chosen & (total[:, nq] <= budget)
-        num_qu[ok] = nq
-        chosen |= ok
-    out = {"num_qu": num_qu, "sfi": sfi, "mant": mant, "spec_tab": spec_tab}
-    if tones is not None:
-        out["tones"] = tones
-    return out
 
 
 def _num_tone_bands(tones):

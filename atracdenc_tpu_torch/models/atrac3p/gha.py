@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from atracdenc_tpu_torch import runtime  # noqa: F401  (f32 policy)
+from atracdenc_tpu_torch import trace
 from atracdenc_tpu_torch.ops.psy import calc_ath
 
 NUM_TONE_SUBBANDS = 8       # the reference analyzes subbands 0..7
@@ -173,6 +174,7 @@ def _greedy(x, fit_mask, max_keep, sb_ath):
     max_amp = torch.zeros((lanes,), dtype=torch.float32, device=dev)
 
     for k in range(MAX_WAVES):
+        trace.count("gha_round")
         re, im = _lane_spectrum(x)                   # [L, 1024]
         mag2 = torch.where(bins_mask, re * re + im * im, 0.0)
         b = torch.argmax(mag2, dim=-1).to(torch.int32)

@@ -6,6 +6,8 @@ previous half | falling-windowed current], the stored half being the
 previous frame's samples under the rising window; odd subbands are
 spectrum-reversed.
 """
+from functools import lru_cache
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -17,7 +19,13 @@ SINE_WIN_128 = (2.0 * np.sin((np.arange(128) + 0.5)
 
 
 def _win(x):
-    return torch.as_tensor(SINE_WIN_128, dtype=x.dtype, device=x.device)
+    return _window(x.dtype, x.device)
+
+
+@lru_cache(maxsize=None)
+def _window(dtype, dev):
+    """The sine window on ``dev``, copied there once."""
+    return torch.as_tensor(SINE_WIN_128, dtype=dtype, device=dev)
 
 
 def _odd_flip(s):

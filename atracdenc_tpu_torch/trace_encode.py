@@ -9,7 +9,11 @@ packer, as a library user batches tracks:
   * ATRAC3, the main path: 64 streams x 256 stereo frames, default mode,
     ``pack_device_batch`` (the shape of chip_smoke.py and bench.py);
   * ATRAC1: the same PCM as 64 streams x 2 ch x 512 frames (the
-    ``atrac1-sp.batch`` cell's call), ``pack_device``.
+    ``atrac1-sp.batch`` cell's call), ``pack_device``;
+  * ATRAC3+: the same PCM as 64 streams x 128 stereo frames of 2048
+    samples, GHA mask 7, ``encode_chunk_bytes`` (``encode_chunk_device``
+    and ``pack_device``: the ``atrac3plus.batch`` cell's call at a
+    quarter of its frames).
 Each call runs twice to warm up, then
   1. once with the port's tracer on (``trace.py``): per span path (root /
      ... / span) the calls, host ms, device ms and self ms (the device time
@@ -281,6 +285,7 @@ def main(argv=None):
     from atracdenc_tpu_torch.models.atrac1 import encoder as enc1
     from atracdenc_tpu_torch.models.atrac3 import device_pack as pack3
     from atracdenc_tpu_torch.models.atrac3 import encoder as enc3
+    from atracdenc_tpu_torch.models.atrac3p import encoder as enc3p
 
     dev = runtime.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -306,10 +311,18 @@ def main(argv=None):
 
     out["atrac1"] = _trace(at1_call, {
         "sound_units": STREAMS * 2 * FRAMES * 2})
+    # the same PCM: 256 x 1024 = 128 x 2048 samples a stream
+    _, st3p = enc3p.encode_chunk_bytes(x3, None, x3[..., :2048])
+
+    def at3p_call():
+        return enc3p.encode_chunk_bytes(x3, st3p, x3[..., :2048])[0]
+
+    out["atrac3plus"] = _trace(at3p_call, {
+        "stereo_frames": STREAMS * FRAMES // 2})
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as fp:
         json.dump(out, fp, indent=1)
-    for codec in ("atrac3", "atrac1"):
+    for codec in ("atrac3", "atrac1", "atrac3plus"):
         r = out[codec]
         print(f"{card} | {codec} {r['items']}: wall {r['wall_ms']:.1f} ms, "
               f"device busy {r['device_busy_ms']:.1f} ms, idle share "

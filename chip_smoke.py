@@ -1576,7 +1576,37 @@ def main():
         f"device decode_frames {t_dec11:.4f} s, max |CUDA - CPU| {err11!r}")
     log(f"[11 atrac3+ real size] encode_frames_bytes profiled: device busy "
         f"{busy11:.3f} ms in {sum(c for _, _, c in ev11)} device launches; "
-        f"top: {top11}; phase 11 took {time.perf_counter() - t_phase11:.1f} s")
+        f"top: {top11}")
+    # the batched chunk call at the atrac3plus.batch cell's shape: 64
+    # tracks x 2 chunks of 512 frames, the carry passed on, against the
+    # whole-track call on one track
+    del b11, x11
+    torch.cuda.empty_cache()
+    kc = 512
+    xc = x.repeat(1, 1, -(-2 * kc * 2048 // x.shape[-1]))[..., :2 * kc * 2048]
+    xc = xc.contiguous()
+    cut = kc * 2048
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    c1, st = at3p_encoder.encode_chunk_bytes(
+        xc[..., :cut].contiguous(), None, xc[..., cut:cut + 2048].contiguous())
+    c2, _ = at3p_encoder.encode_chunk_bytes(xc[..., cut:].contiguous(), st,
+                                            None)
+    torch.cuda.synchronize()
+    t_chunk = time.perf_counter() - t0
+    peak_chunk = torch.cuda.max_memory_allocated() / 2 ** 30
+    whole = at3p_encoder.encode_frames_bytes(xc[:1], CHANNELS)
+    assert torch.equal(torch.cat([c1[0], c2[0]]), whole[0]), \
+        "ATRAC3+ chunked bytes differ from the whole-track call's"
+    log(f"[11 atrac3+ real size] encode_chunk_bytes at {xc.shape[0]} x "
+        f"2 x {kc} stereo frames with the carry: {t_chunk:.3f} s = "
+        f"{xc.shape[0] * 2 * kc / t_chunk:.1f} stereo frames/s (the first "
+        f"calls at this shape), peak {peak_chunk:.2f} GiB; stream 0 equals "
+        f"encode_frames_bytes, sha256 {digest(runtime.to_numpy(c1))}; phase "
+        f"11 took {time.perf_counter() - t_phase11:.1f} s")
+    del xc, c1, c2, st, whole
+    torch.cuda.empty_cache()
 
     # --- 12. the mesh at full width; 13. the batch transcoder
     torch.cuda.empty_cache()

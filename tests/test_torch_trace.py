@@ -17,6 +17,7 @@ from atracdenc_tpu_torch.models.atrac1 import device_pack as pack1
 from atracdenc_tpu_torch.models.atrac1 import encoder as enc1
 from atracdenc_tpu_torch.models.atrac3 import device_pack as pack3
 from atracdenc_tpu_torch.models.atrac3 import encoder as enc3
+from atracdenc_tpu_torch.models.atrac3p import encoder as enc3p
 from atracdenc_tpu_torch.ops import bitdeposit
 from atracdenc_tpu_torch.tools import transcode
 from portbench import manifest, program_trace
@@ -29,6 +30,8 @@ AT3_CHILDREN = {"band_frames", "gain_control", "mdct", "loudness_scan",
 AT1_CHILDREN = {"chunk_cat", "qmf_analysis", "transient_masks", "mdct",
                 "loudness_scan", "bfu_gather", "scale_blocks",
                 "rate_control", "quant_mantissas"}
+AT3P_CHILDREN = {"pqf_analysis", "gha_extract", "gha_subtract", "mdct",
+                 "scale_blocks", "spectral_planes", "finish_planes"}
 
 
 @pytest.fixture(autouse=True)
@@ -59,7 +62,12 @@ def _at1_call(pcm, state=None, nxt=None):
     return pack1.pack_device(merged), state
 
 
-CALLS = {"at3": (_at3_call, 1024), "at1": (_at1_call, 512)}
+def _at3p_call(pcm, state=None, nxt=None):
+    return enc3p.encode_chunk_bytes(pcm, state, nxt)
+
+
+CALLS = {"at3": (_at3_call, 1024), "at1": (_at1_call, 512),
+         "at3p": (_at3p_call, 2048)}
 
 
 def _middle_call(codec):
@@ -70,7 +78,7 @@ def _middle_call(codec):
     return lambda: call(x, state, x[..., :spf])[0]
 
 
-@pytest.mark.parametrize("codec", ["at3", "at1"])
+@pytest.mark.parametrize("codec", ["at3", "at1", "at3p"])
 def test_off_records_nothing_and_on_changes_no_byte(codec):
     run = _middle_call(codec)
     off = run()
@@ -85,7 +93,8 @@ def test_off_records_nothing_and_on_changes_no_byte(codec):
 
 
 @pytest.mark.parametrize("codec,children", [("at3", AT3_CHILDREN),
-                                            ("at1", AT1_CHILDREN)])
+                                            ("at1", AT1_CHILDREN),
+                                            ("at3p", AT3P_CHILDREN)])
 def test_span_tree_of_the_batch_call(codec, children):
     run = _middle_call(codec)
     trace.enable()
@@ -105,6 +114,13 @@ def test_span_tree_of_the_batch_call(codec, children):
         for f in fields:
             kids = {r["name"] for r in recs if r["parent"] == f["id"]}
             assert kids == {"tonal_fields", "offset_scan", "field_cat"}
+    elif codec == "at3p":
+        assert pack_kids == {"tonal_fields", "spectrum_fields",
+                             "deposit_fields"}
+        assert sum(r["name"] == "spectrum_fields" for r in recs) == 2
+        fin = next(r for r in recs if r["name"] == "finish_planes")
+        assert {r["name"] for r in recs if r["parent"] == fin["id"]} == {
+            "tonal_fields"}
     else:
         assert pack_kids == {"field_cat", "offset_scan", "deposit_fields"}
     for r in recs:
@@ -115,6 +131,25 @@ def test_span_tree_of_the_batch_call(codec, children):
             p = by_id[r["parent"]]
             assert p["root"] == r["root"]
             assert p["host"][0] <= r["host"][0] <= r["host"][1] <= p["host"][1]
+
+
+def test_at3p_call_counts_gha_rounds_and_no_host_sync():
+    """An ATRAC3+ call counts 16 greedy rounds (8 on the whole window, 8
+    on the truncated-window refit), all under ``gha_extract``, read
+    nothing of the card, and on the CPU path no ``host_sync``."""
+    run = _middle_call("at3p")
+    trace.enable()
+    run()
+    snap = trace.snapshot()
+    assert snap["counters"]["gha_round"] == {
+        "total": 16, "by_span": {"gha_extract": 16}}
+    assert "host_sync" not in snap["counters"]
+    assert [r["name"] for r in snap["records"] if r["parent"] is None] == [
+        "at3p.encode_chunk", "at3p.pack"]
+    trace.disable()
+    trace.reset()
+    run()
+    assert trace.counter("gha_round") == 16         # counted when off too
 
 
 def test_self_time_is_duration_less_children():
@@ -247,7 +282,9 @@ def test_transcoder_trace_file(codec, chunk, short_wav, tmp_path, capsys):
 READERS = ["span_ms.at1_encode", "span_ms.at1_pack", "span_ms.at1_loudness",
            "host_ms.at1_loudness", "host_syncs_per_call.at1",
            "span_ms.at3_gain_control", "span_ms.at3_pack",
-           "host_syncs_per_call.at3"]
+           "host_syncs_per_call.at3", "span_ms.at3p_encode",
+           "span_ms.at3p_gha", "span_ms.at3p_pack",
+           "host_syncs_per_call.at3p"]
 
 
 def _rec(rid, name, parent, root, root_name, host, device, syncs=0,
@@ -292,6 +329,20 @@ def _synthetic():
         recs.append(_rec(rid, "at3.pack", None, rid, "at3.pack",
                          (t + 900, t + 950), (t + 900, t + 990 * slow), 0,
                          profiled))
+        rid += 1
+        a3p = rid
+        recs.append(_rec(a3p, "at3p.encode_chunk", None, a3p,
+                         "at3p.encode_chunk", (t + 1, t + 600),
+                         (t + 1, t + 1 + 500 * slow), 5 * profiled, profiled))
+        for name, dur in (("gha_extract", 300), ("gha_subtract", 40)):
+            rid += 1
+            recs.append(_rec(rid, name, a3p, a3p, "at3p.encode_chunk",
+                             (t + 2, t + 3), (t + 2, t + 2 + dur * slow), 0,
+                             profiled))
+        rid += 1
+        recs.append(_rec(rid, "at3p.pack", None, rid, "at3p.pack",
+                         (t + 600, t + 610), (t + 600, t + 660 * slow), 0,
+                         profiled))
     return recs
 
 
@@ -315,7 +366,9 @@ def test_readers_of_the_program_trace(monkeypatch):
         "span_ms.at1_encode": 70.0, "span_ms.at1_pack": 8.0,
         "span_ms.at1_loudness": 20.0, "host_ms.at1_loudness": 15.0,
         "host_syncs_per_call.at1": 4.0, "span_ms.at3_gain_control": 250.0,
-        "span_ms.at3_pack": 90.0, "host_syncs_per_call.at3": 1.0})
+        "span_ms.at3_pack": 90.0, "host_syncs_per_call.at3": 1.0,
+        "span_ms.at3p_encode": 500.0, "span_ms.at3p_gha": 340.0,
+        "span_ms.at3p_pack": 60.0, "host_syncs_per_call.at3p": 0.0})
 
 
 @pytest.mark.parametrize("stub", [None, _Stub([])])
@@ -381,3 +434,20 @@ def test_trace_encode_stage_split_adds_up():
     assert sum(v["self_ms"] for v in stages.values()) == pytest.approx(
         roots_ms, rel=1e-9)
 
+
+
+def test_trace_encode_stage_split_of_at3p():
+    """The ATRAC3+ call's split: its two roots, the GHA and packer spans by
+    path, and self times that add up to the roots'."""
+    run = _middle_call("at3p")
+    trace.enable()
+    run()
+    stages, syncs, roots_ms = trace_encode.stage_split(
+        trace.snapshot()["records"])
+    assert syncs == {"at3p.encode_chunk": 0, "at3p.pack": 0}
+    assert "at3p.encode_chunk/gha_extract" in stages
+    assert "at3p.encode_chunk/finish_planes/tonal_fields" in stages
+    assert stages["at3p.pack/spectrum_fields"]["calls"] == 2
+    assert "at3p.pack/deposit_fields" in stages
+    assert sum(v["self_ms"] for v in stages.values()) == pytest.approx(
+        roots_ms, rel=1e-9)
