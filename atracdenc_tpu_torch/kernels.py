@@ -51,6 +51,10 @@ _SIGNATURES = {
     # (values, value_bytes, widths, width_bytes, offsets, offset_bytes, out,
     #  n_frames, k, total_bytes, stream)
     "deposit_fields": [_P, _I, _P, _I, _P, _I, _P, _L, _I, _I, _P],
+    # (x, fit_len, max_keep, sb_ath, active, dft_c, dft_s, tone_sin, ladder,
+    #  freq, sf, ph, valid, max_amp, x_work, lists, counts, lane_rounds,
+    #  lanes, stream)
+    "gha_greedy": [_P] * 18 + [_I, _P],
 }
 
 

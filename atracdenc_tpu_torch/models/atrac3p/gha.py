@@ -18,8 +18,10 @@ decisions:
     atrac3plusdsp.c:77-204, amplitude mode 1), so the residual handed to the
     MDCT subtracts exactly what a decoder adds back.
 
-The JAX ``fori_loop`` rounds are Python loops here.  Sorts are stable, as
-``jnp.argsort`` is, and ``argmax`` takes the first maximum.
+The JAX ``fori_loop`` rounds are Python loops here (``_greedy``, the plain
+version); on the card the greedy rounds are kernel H (``greedy``,
+``csrc/gha_greedy.cu``), which runs only the lanes still searching.  Sorts
+are stable, as ``jnp.argsort`` is, and ``argmax`` takes the first maximum.
 
 Wire planes produced by ``extract`` (a leading stream axis S is optional
 on every function: bands [S, C, F, 16, 128] give planes with S in front):
@@ -36,8 +38,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from atracdenc_tpu_torch import kernels, trace
 from atracdenc_tpu_torch import runtime  # noqa: F401  (f32 policy)
-from atracdenc_tpu_torch import trace
 from atracdenc_tpu_torch.ops.psy import calc_ath
 
 NUM_TONE_SUBBANDS = 8       # the reference analyzes subbands 0..7
@@ -71,6 +73,11 @@ def _const(name, dev):
         from .pqf import _analysis_kernel
         return torch.as_tensor(_analysis_kernel().T, device=dev).to(
             torch.complex64)
+    elif name == "tone_sin":                # _greedy's sin at each pos
+        pos = torch.arange(2048, device=dev)
+        return torch.sin(2.0 * np.pi * pos.to(torch.float32) / 2048.0)
+    elif name == "ladder":                  # _amp_ladder at each sf
+        return _amp_ladder(torch.arange(64, dtype=torch.int32, device=dev))
     else:                                   # ("cos" | "sin", length)
         kind, length = name
         a = _wave_tables(length)[kind == "sin"]
@@ -216,6 +223,71 @@ def _greedy(x, fit_mask, max_keep, sb_ath):
     return freq, sf, ph, valid
 
 
+def greedy(x, fit_len, max_keep, sb_ath, active=None):
+    """``_greedy`` over the fit window ``arange(128) < fit_len``, on the
+    lanes ``active`` (None: every lane); an inactive lane comes back as
+    zeros and not valid, as if every round had rejected.
+
+    x [L, 128] f32; fit_len, max_keep [L] int32; sb_ath [L] f32; active [L]
+    bool or None.  A CPU tensor takes the plain ``_greedy`` on every lane
+    and masks afterwards; a CUDA tensor launches kernel H
+    (``csrc/gha_greedy.cu``: the seed kernel, then one launch a round over
+    the lanes still searching), or raises."""
+    with trace.span("gha_greedy"):
+        trace.count("gha.lane_rounds_offered", x.shape[0] * MAX_WAVES)
+        if x.device.type == "cpu":
+            fit = torch.arange(128, device=x.device) < fit_len[:, None]
+            out = _greedy(x, fit, max_keep, sb_ath)
+            if active is None:
+                return out
+            return tuple(torch.where(active[:, None], o, torch.zeros_like(o))
+                         for o in out)
+        return _greedy_cuda(x, fit_len, max_keep, sb_ath, active)
+
+
+def _greedy_cuda(x, fit_len, max_keep, sb_ath, active):
+    """Kernel H's launch: the planes come back zeroed by its seed kernel
+    but where a round accepted; ``max_amp``, ``x_work`` (a lane's residual
+    after its last accepted round), the two lane lists and the rounds'
+    counts are its scratch."""
+    lanes = x.shape[0]
+    dev = x.device
+    f32, i32 = torch.float32, torch.int32
+    if x.dtype != f32 or x.dim() != 2 or x.shape[1] != 128 \
+            or fit_len.dtype != i32 or max_keep.dtype != i32 \
+            or sb_ath.dtype != f32 \
+            or any(t.shape != (lanes,) for t in (fit_len, max_keep, sb_ath)) \
+            or (active is not None and (active.dtype != torch.bool
+                                        or active.shape != (lanes,))):
+        raise ValueError("gha greedy: need x [L, 128] f32, fit_len and "
+                         "max_keep [L] int32, sb_ath [L] f32 and active [L] "
+                         "bool or None")
+    lib = kernels.library()
+    planes = torch.empty((3, lanes, MAX_WAVES), dtype=i32, device=dev)
+    valid = torch.empty((lanes, MAX_WAVES), dtype=torch.bool, device=dev)
+    max_amp = torch.empty(lanes, dtype=f32, device=dev)
+    x_work = torch.empty_like(x)
+    lists = torch.empty((2, lanes), dtype=i32, device=dev)
+    counts = torch.zeros(MAX_WAVES + 1, dtype=i32, device=dev)
+    tables = [_const(n, dev) for n in ("dft_c", "dft_s", "tone_sin", "ladder")]
+    ins = [x, fit_len, max_keep, sb_ath] + ([] if active is None else [active])
+    kernels.require_cuda("gha greedy", *ins, *tables, planes, valid, max_amp,
+                         x_work, lists, counts)
+    lane_rounds = trace.device_counter("gha.lane_rounds", dev)
+    kernels.check(lib.gha_greedy(
+        x.data_ptr(), fit_len.data_ptr(), max_keep.data_ptr(),
+        sb_ath.data_ptr(), None if active is None else active.data_ptr(),
+        *(t.data_ptr() for t in tables), planes[0].data_ptr(),
+        planes[1].data_ptr(), planes[2].data_ptr(), valid.data_ptr(),
+        max_amp.data_ptr(), x_work.data_ptr(), lists.data_ptr(),
+        counts.data_ptr(), None if lane_rounds is None
+        else lane_rounds.data_ptr(), lanes, kernels.stream_ptr(x)),
+        "gha greedy")
+    trace.count("gha_round", MAX_WAVES)
+    trace.count("launch.gha_greedy", MAX_WAVES)
+    return planes[0], planes[1], planes[2], valid
+
+
 def _detect_run(x, resid):
     """Longest run of 4-sample blocks where rms_in >= rms_out
     (CheckResuidalAndApply, at3p_gha.cpp:510-538).  [L,128] -> start, end in
@@ -260,13 +332,13 @@ def extract(bands):
     lanes = x.shape[0]
     sb_ath = _ath_lanes(lanes, x.device)
 
-    full = torch.ones((lanes, 128), dtype=torch.bool, device=x.device)
+    full = torch.full((lanes,), 128, dtype=torch.int32, device=x.device)
     cap = torch.full((lanes,), MAX_WAVES, dtype=torch.int32, device=x.device)
-    freq, sf, ph, valid = _greedy(x, full, cap, sb_ath)
+    freq, sf, ph, valid = greedy(x, full, cap, sb_ath)
 
-    def refit(mask2, truncate, n1):
-        return _greedy(x, torch.where(truncate[:, None], mask2, full),
-                       torch.where(truncate, n1, cap), sb_ath)
+    def refit(e1, truncate, n1):
+        return greedy(x, torch.where(truncate, e1, full),
+                      torch.where(truncate, n1, cap), sb_ath, active=truncate)
 
     return _unlead(_finish(bands, x, freq, sf, ph, valid, refit), had)
 
@@ -298,10 +370,10 @@ def _finish(bands, x, freq, sf, ph, valid, refit=None):
 
     if refit is not None:
         # envelope pass 2: refit on the truncated window (FrameSz=end
-        # Repeat, CheckResuidalAndApply at3p_gha.cpp:548-552)
+        # Repeat, CheckResuidalAndApply at3p_gha.cpp:548-552), kept only
+        # where ``truncate``
         n1 = valid.sum(-1).to(torch.int32)
-        mask2 = torch.arange(128, device=dev) < e1[:, None]
-        freq2, sf2, ph2, valid2 = refit(mask2, truncate, n1)
+        freq2, sf2, ph2, valid2 = refit(e1, truncate, n1)
         t = truncate[:, None]
         freq = torch.where(t, freq2, freq)
         sf = torch.where(t, sf2, sf)

@@ -102,3 +102,144 @@ def deposit_case(seed, total_bytes, f=6, k=256):
     fits = (np.where(gone, 0, offsets + widths).max(axis=1) <= bits)
     return (values[:, perm].astype(np.uint32), widths[:, perm].astype(np.int32),
             offsets[:, perm].astype(np.int32), np.flatnonzero(fits))
+
+
+def gha_lanes(seed, lanes=4096):
+    """Inputs for the ATRAC3+ GHA greedy (``gha.greedy``): x [L, 128] f32
+    of 0 to 4 tones a lane (anywhere on the 2048-point grid and between its
+    bins, band-sample amplitudes 10 to 3,000) over Gaussian noise (5 to 500
+    rms), with every lane's fit length 128, max_keep 8, its subband's ATH
+    (lane l is subband l % 8) and every lane active; numpy arrays."""
+    from atracdenc_tpu_torch.models.atrac3p.gha import _SUBBAND_ATH
+    rng = np.random.default_rng(seed)
+    n = np.arange(128, dtype=np.float64)
+    x = rng.standard_normal((lanes, 128)) * rng.uniform(5, 500, (lanes, 1))
+    tones = rng.integers(0, 5, lanes)
+    for j in range(4):
+        on = (tones > j)[:, None]
+        f = rng.uniform(1, 1023, (lanes, 1))
+        amp = np.exp(rng.uniform(np.log(10), np.log(3000), (lanes, 1)))
+        phase = rng.uniform(0, 2 * np.pi, (lanes, 1))
+        x += np.where(on, amp * np.sin(2 * np.pi * f * n / 2048 + phase), 0)
+    return {"x": x.astype(np.float32),
+            "fit_len": np.full(lanes, 128, np.int32),
+            "max_keep": np.full(lanes, 8, np.int32),
+            "sb_ath": _SUBBAND_ATH[np.arange(lanes) % 8],
+            "active": np.ones(lanes, bool)}
+
+
+def gha_edge_lanes(seed):
+    """``gha_lanes``' format, lanes at the greedy's edges: all zeros; one
+    tone cut to fit lengths 1, 17 and 127; max_keep 0 and 8; eight tones on
+    the grid 100 bins apart and 2^(-1/4) apart in amplitude, which the
+    greedy accepts all 8 rounds of; two inactive lanes; then 56 lanes of
+    ``gha_lanes`` with random fit lengths (1 to 128), max_keep (0 to 8) and
+    activity."""
+    edge = gha_lanes(seed, 64)
+    rng = np.random.default_rng(seed + 1)
+    n = np.arange(128)
+    tone = (900.0 * np.sin(2 * np.pi * 137 * n / 2048 + 0.3)).astype(np.float32)
+    eight = sum(2.0 ** ((40 - j) / 4) * np.sin(
+        2 * np.pi * (50 + 100 * j) * n / 2048 + np.pi * j / 16)
+        for j in range(8)).astype(np.float32)
+    rows = [(np.zeros(128, np.float32), 128, 8, True), (tone, 1, 8, True),
+            (tone, 17, 8, True), (tone, 127, 8, True), (tone, 128, 0, True),
+            (tone, 128, 8, True), (eight, 128, 8, True), (tone, 128, 8, False),
+            (eight, 128, 8, False)]
+    for i, (x, fit, keep, on) in enumerate(rows):
+        edge["x"][i], edge["fit_len"][i] = x, fit
+        edge["max_keep"][i], edge["active"][i] = keep, on
+    rest = slice(len(rows), None)
+    m = 64 - len(rows)
+    edge["fit_len"][rest] = rng.integers(1, 129, m)
+    edge["max_keep"][rest] = rng.integers(0, 9, m)
+    edge["active"][rest] = rng.random(m) < 0.7
+    return edge
+
+
+def gha_round(x, fit, n_fit, freq, valid, max_amp, sb_ath):
+    """One round of ``gha._greedy``'s arithmetic on every lane: the same
+    tensor ops in the same order on the same shapes, so the same floats.
+    -> {b, sf, ph, amp, resid [L, 128], gates (all but ``k < max_keep``),
+    and each decision's two sides: top1, top2 (mag2's two largest), e_new,
+    e_cut (0.9 e_old), amp2 (amp^2), ath, amp_cut (max_amp / 10), and the
+    quantisers' inputs sf_in (4 log2 amp + 3) and ph_in (phi_steps / 64)}."""
+    from atracdenc_tpu_torch.models.atrac3p import gha
+    re, im = gha._lane_spectrum(x)
+    mag2 = torch.where(torch.arange(1024, device=x.device) >= 1,
+                       re * re + im * im, 0.0)
+    b = torch.argmax(mag2, dim=-1).to(torch.int32)
+    bl = b.long()[:, None]
+    re_b, im_b = re.gather(1, bl)[:, 0], im.gather(1, bl)[:, 0]
+    amp = 2.0 * torch.sqrt(re_b * re_b + im_b * im_b) / n_fit
+    phi = torch.atan2(im_b, re_b) + np.pi / 2.0
+    phi_steps = torch.remainder(phi * (2048.0 / (2.0 * np.pi)), 2048.0)
+    sf, amp_q, ph = gha._quantize_wave(amp, phi_steps, b.to(torch.float32))
+    pos = ((ph[:, None] << 6)
+           + torch.arange(128, device=x.device, dtype=torch.int32)
+           * b[:, None]) & 2047
+    tone = torch.where(fit, amp_q[:, None] * torch.sin(
+        2.0 * np.pi * pos.to(torch.float32) / 2048.0), 0.0)
+    e_old = torch.sum(x * x, dim=-1)
+    resid = x - tone
+    e_new = torch.sum(resid * resid, dim=-1)
+    dist = torch.where(valid, torch.abs(freq - b[:, None]), 1 << 20)
+    e_cut, amp_cut = e_old * 0.9, max_amp / 10.0
+    gates = ((e_new < e_cut) & (amp * amp > sb_ath) & (amp > amp_cut)
+             & (torch.amin(dist, dim=-1) >= gha.MIN_FREQ_DIST))
+    top = torch.topk(mag2, 2, dim=-1).values
+    return {"b": b, "sf": sf, "ph": ph, "amp": amp, "resid": resid,
+            "gates": gates, "top1": top[:, 0], "top2": top[:, 1],
+            "e_new": e_new, "e_cut": e_cut, "amp2": amp * amp, "ath": sb_ath,
+            "amp_cut": amp_cut,
+            "sf_in": 4.0 * torch.log2(torch.clamp(amp, min=1e-20)) + 3.0,
+            "ph_in": phi_steps / 64.0}
+
+
+def gha_replay(x, fit_len, max_keep, sb_ath, active=None, seed=0):
+    """Kernel H's control flow with ``gha_round``'s arithmetic: round 0
+    lists the active lanes (every lane for None) with max_keep > 0; a round
+    decides for the listed lanes only, writes each result at the lane's own
+    index, and lists, in an order shuffled by ``seed``, the lanes that
+    accepted with another round left under max_keep.
+    -> (freq, sf, ph, valid, lane-rounds computed, [each round's
+    ``gha_round`` dict with its listed lanes under "listed"])."""
+    from atracdenc_tpu_torch.models.atrac3p import gha
+    lanes, dev, w = x.shape[0], x.device, gha.MAX_WAVES
+    rng = np.random.default_rng(seed)
+    fit = torch.arange(128, device=dev) < fit_len[:, None]
+    work = torch.where(fit, x, 0.0)
+    n_fit = torch.clamp(fit.sum(-1), min=1).to(torch.float32)
+    freq, sf, ph = (torch.zeros((lanes, w), dtype=torch.int32, device=dev)
+                    for _ in range(3))
+    valid = torch.zeros((lanes, w), dtype=torch.bool, device=dev)
+    max_amp = torch.zeros(lanes, device=dev)
+    on = max_keep > 0
+    if active is not None:
+        on = on & active
+    listed = torch.nonzero(on)[:, 0]
+    rounds, n = [], 0
+    for k in range(w):
+        if not len(listed):
+            break
+        n += len(listed)
+        r = gha_round(work, fit, n_fit, freq, valid, max_amp, sb_ath)
+        rounds.append(dict(r, listed=listed))
+        acc = listed[r["gates"][listed]]
+        work[acc] = r["resid"][acc]
+        freq[acc, k], sf[acc, k], ph[acc, k] = r["b"][acc], r["sf"][acc], \
+            r["ph"][acc]
+        valid[acc, k] = True
+        max_amp[acc] = torch.maximum(max_amp[acc], r["amp"][acc])
+        nxt = acc[(k + 1 < w) & (k + 1 < max_keep[acc])]
+        listed = nxt[torch.from_numpy(rng.permutation(len(nxt))).to(dev)]
+    return freq, sf, ph, valid, n, rounds
+
+
+def gha_rounds_of(valid, max_keep, active):
+    """Lane-rounds that H computes, from its planes: one round a kept wave
+    and the round that stopped the lane, under min(max_keep, 8), on the
+    active lanes."""
+    cap = torch.clamp(max_keep, 0, valid.shape[-1])
+    n = valid.sum(-1)
+    return int(torch.where(active, torch.minimum(n + 1, cap), 0).sum())

@@ -27,6 +27,10 @@ profiler slowed.  On, nothing synchronises outside ``snapshot()`` (and
 launch counters ``launch.*`` are read with tracing off); on, the count is
 also attributed to the innermost open span.  ``host_sync`` counts the
 places where the program blocks the host on the card (``runtime``).
+``device_counter(name, dev)`` gives, while tracing is on, an int64 scalar
+on the device that a kernel adds its own counts into (None when off, and
+the kernel then counts nothing); ``snapshot()`` reads it after its
+synchronisation, as the counter's total (no span attribution).
 
 Clocks.  Host times are ``time.time_ns()``: ns on the Unix epoch clock,
 the clock on which ``torch.profiler`` stamps its CPU events; its exported
@@ -47,7 +51,7 @@ import time
 
 import torch
 
-__all__ = ["enable", "disable", "reset", "span", "count",
+__all__ = ["enable", "disable", "reset", "span", "count", "device_counter",
            "counter", "current", "snapshot", "summarize", "write_chrome"]
 
 _on = False
@@ -58,6 +62,7 @@ _pending = []           # closed spans whose events are not resolved yet
 _done = []              # resolved records (dicts)
 _loose = {}             # counts made while on, outside every span
 _totals = {}            # every count, whatever the switch
+_device = {}            # (name, device) -> int64 [1] that kernels add into
 _ids = itertools.count(1)
 # A span's profiler range: the RecordFunction that torch.profiler's
 # record_function opens, without record_function's dispatcher op.  Its ends
@@ -113,6 +118,7 @@ def reset():
     _done.clear()
     _loose.clear()
     _totals.clear()
+    _device.clear()
 
 
 @contextlib.contextmanager
@@ -145,6 +151,17 @@ def count(name, n=1):
     if _on:
         c = _stack[-1].counts if _stack else _loose
         c[name] = c.get(name, 0) + n
+
+
+def device_counter(name, dev):
+    """On: the int64 [1] tensor on ``dev`` that kernels add counter
+    ``name``'s counts into (zero after ``reset()``); off: None."""
+    if not _on:
+        return None
+    key = (name, str(dev))
+    if key not in _device:
+        _device[key] = torch.zeros(1, dtype=torch.int64, device=dev)
+    return _device[key]
 
 
 def counter(name):
@@ -221,12 +238,16 @@ def snapshot():
     """Synchronise once, resolve every closed span's events against its
     anchor and free them -> {"records": [plain records], "spans",
     "counters"} (``summarize`` of all records, the counts made outside
-    every span in the totals).  Each record: name, id, parent, root,
-    root_name, profiled, host [t0, t1] ns, device [t0, t1] ns or None,
-    counts {counter: n} made while it was the innermost span."""
+    every span and the device counters in the totals).  Each record: name,
+    id, parent, root, root_name, profiled, host [t0, t1] ns, device [t0,
+    t1] ns or None, counts {counter: n} made while it was the innermost
+    span."""
     _resolve()
     records = list(_done)
     out = summarize(records, _loose)
+    for (name, _), t in _device.items():
+        c = out["counters"].setdefault(name, {"total": 0, "by_span": {}})
+        c["total"] += int(t.item())  # waits for the kernels that add to it
     out["records"] = records
     return out
 

@@ -17,8 +17,10 @@ packer, as a library user batches tracks:
 Each call runs twice to warm up, then
   1. once with the port's tracer on (``trace.py``): per span path (root /
      ... / span) the calls, host ms, device ms and self ms (the device time
-     its child spans leave; the self times add up to the roots' time), and
-     the ``host_sync`` count under each root;
+     its child spans leave; the self times add up to the roots' time), the
+     ``host_sync`` count under each root, and ATRAC3+'s GHA lane-rounds:
+     those kernel H computed (``gha.lane_rounds``) of those the plain
+     greedy would (``gha.lane_rounds_offered``);
   2. once more with the tracer on under ``torch.profiler``: the device's
      busy time (the union of its kernel, copy and set intervals, not their
      sum) and idle share, the device ops with most time, and every device
@@ -250,7 +252,10 @@ def _trace(call, items):
     trace.reset()
     trace.enable()
     call()
-    stages, syncs, roots_ms = stage_split(trace.snapshot()["records"])
+    snap = trace.snapshot()
+    stages, syncs, roots_ms = stage_split(snap["records"])
+    lane_rounds = {k: v["total"] for k, v in snap["counters"].items()
+                   if k.startswith("gha.lane_rounds")}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -269,7 +274,7 @@ def _trace(call, items):
             events = json.load(fp)["traceEvents"]
     out = {"items": items, "roots_ms": roots_ms,
            "self_ms_sum": sum(v["self_ms"] for v in stages.values()),
-           "stages": stages, "host_syncs": syncs}
+           "stages": stages, "host_syncs": syncs, "lane_rounds": lane_rounds}
     out.update(attribute(events, wall_s, names))
     return out
 
@@ -328,6 +333,12 @@ def main(argv=None):
               f"device busy {r['device_busy_ms']:.1f} ms, idle share "
               f"{r['device_idle_share']:.4f}, {r['kernel_launches']} kernel "
               f"launches; host syncs by root {r['host_syncs']}")
+        lr = r["lane_rounds"]
+        if lr:
+            done = lr.get("gha.lane_rounds", 0)
+            offered = lr["gha.lane_rounds_offered"]
+            print(f"GHA greedy: {done} lane-rounds computed of {offered} "
+                  f"offered ({done / offered:.4f})")
         print(f"spans (roots {r['roots_ms']:.2f} ms, self times add to "
               f"{r['self_ms_sum']:.2f} ms): path, calls, host ms, device ms, "
               "self ms")

@@ -4,10 +4,10 @@
 
 Phases (each asserts; any failure exits non-zero):
   1. device   — CUDA present; torch / CUDA versions, card name and power limit
-  2. build    — nvcc builds csrc/*.cu (kernels A, B, C, D, E, F, G) from
-                this checkout, one nvcc per source, all at once; prints
-                ptxas's registers, shared memory, stack and spills of every
-                kernel (A to G)
+  2. build    — nvcc builds csrc/*.cu (kernels A to H) from this
+                checkout, one nvcc per source, all at once; prints ptxas's
+                registers, shared memory, stack and spills of every kernel
+                (A to H)
   3. kernels  — each kernel against its plain PyTorch version on the inputs
                 its path gives it: A, B, C at the ATRAC3 main path's 64
                 streams x 2 ch x 256 frames (A vlc equal and err within 4
@@ -26,7 +26,14 @@ Phases (each asserts; any failure exits non-zero):
                 65,536 units of 212 B, ATRAC3's two channel deposits of
                 32,768 frames), bytes equal to its plain version, timed
                 beside its bound (the field planes' bytes) and the plain
-                version, with a SHA-256 of its bytes
+                version, with a SHA-256 of its bytes; H (ATRAC3+ GHA's
+                greedy rounds, ``gha.greedy``) on both passes' inputs of
+                one ``atrac3plus.batch`` call (64 tracks x 512 frames,
+                529,408 lanes), integer planes equal its plain version's
+                on >= 99.5% of lanes, timed beside its bound (the
+                lane-rounds it computed x 524,288 FLOP at 67 TFLOP/s) and
+                the plain ``_greedy``, with the lane-rounds' share of the
+                plain version's and a SHA-256 of its planes
   4. golden   — tests/golden encodes on CUDA against the reference frames:
                 ATRAC3 identity floors 0.99, 0.98, 0.85, with the A + B
                 memo and again with the fused memo (kernel D); ATRAC1 0.93
@@ -269,6 +276,66 @@ def zero_counts():
 
 
 MESH_RANKS = 4                             # phase 12: dp 2 x sp 2 on one card
+H_FLOP = 128 * 1024 * 2 * 2                # kernel H: FLOP a lane-round
+
+
+def gha_kernel_check(x, row):
+    """Phase 3's kernel H: ``gha.greedy``'s two passes captured from one
+    ``encode_chunk_bytes`` call at the ``atrac3plus.batch`` cell's shape
+    (64 tracks x 512 frames of ``x`` repeated), each against the plain
+    ``_greedy`` (inactive lanes masked) and timed; ``row`` as phase 3's.
+    -> the log line."""
+    import torch
+    from atracdenc_tpu_torch import trace
+    from atracdenc_tpu_torch.models.atrac3p import encoder as at3p_encoder
+    from atracdenc_tpu_torch.models.atrac3p import gha
+    from atracdenc_tpu_torch.trace_encode import capture, cuda_ms
+    kc = 512
+    xc = x.repeat(1, 1, -(-kc * 2048 // x.shape[-1]))[..., :kc * 2048]
+    xc = xc.contiguous()
+    passes = capture([(gha, "greedy", "H")], lambda: at3p_encoder
+                     .encode_chunk_bytes(xc, None, xc[..., :2048].contiguous()))
+    passes = passes["H"]
+    del xc
+    assert len(passes) == 2, len(passes)
+    equal, lanes_all, rounds, outs = [], 0, 0, []
+    for a, kw in passes:
+        trace.reset()
+        trace.enable()
+        got = gha.greedy(*a, **kw)
+        snap = trace.snapshot()
+        trace.disable()
+        rounds += snap["counters"]["gha.lane_rounds"]["total"]
+        x_, fit_len, max_keep, ath = a
+        on = kw.get("active")
+        fit = torch.arange(128, device=x_.device) < fit_len[:, None]
+        plain = gha._greedy(x_, fit, max_keep, ath)
+        diff = torch.zeros(x_.shape[0], dtype=torch.bool, device=x_.device)
+        for g, p in zip(got, plain):
+            if on is not None:
+                p = torch.where(on[:, None], p, torch.zeros_like(p))
+            diff |= (g != p).any(-1)
+        del plain
+        equal.append(1.0 - float(diff.float().mean()))
+        lanes_all += x_.shape[0]
+        outs.extend(got)
+    torch.cuda.empty_cache()
+    assert min(equal) >= 0.995, f"kernel H: lanes equal {equal}"
+    h_ms = cuda_ms(lambda: [gha.greedy(*a, **kw) for a, kw in passes], 5, 1)
+    h_pms = cuda_ms(lambda: [gha._greedy(
+        a[0], torch.arange(128, device=a[0].device) < a[1][:, None], *a[2:])
+        for a, _ in passes], 1, 1)
+    torch.cuda.empty_cache()
+    h_bound = row("gha_greedy", "gha_greedy.cu", None, 0.0, h_ms, h_pms,
+                  nbytes(passes[0][0][0], *outs[:4]), rounds * H_FLOP)
+    offered = lanes_all * 8
+    return (f"[3 kernels] H gha_greedy, both passes of one atrac3plus.batch "
+            f"call ({passes[0][0][0].shape[0]} lanes; refit on "
+            f"{int(passes[1][1]['active'].sum())}): planes equal the plain "
+            f"version's on {', '.join(f'{e:.6f}' for e in equal)} of lanes; "
+            f"kernel {h_ms:.3f} ms, plain {h_pms:.3f} ms, {h_bound} for "
+            f"{rounds} lane-rounds = {rounds / offered:.4f} of the plain "
+            f"version's {offered}; sha256 {digest(*outs)}")
 
 
 def mesh_rank(rank, coordinator, out_dir, spec):
@@ -979,7 +1046,7 @@ def main():
     log(f"[2 build] {os.path.relpath(path, ROOT)} built in {build_s:.1f} s")
     for fn, use in kernels.ptxas_usage(report).items():
         if any(k in fn for k in ("quant_cost", "greedy_scan", "rate_control",
-                                 "bisect", "at1_allocate", "deposit")):
+                                 "bisect", "at1_allocate", "deposit", "gha_")):
             log(f"[2 build] ptxas {fn}: {use.get('registers')} registers, "
                 f"{use.get('smem', 0)} B shared memory, {use.get('stack')} B "
                 f"stack, {use.get('spill')} B spill stores")
@@ -1171,6 +1238,7 @@ def main():
             f"{g_pms:.3f} ms, {g_bound} a call; sha256 {digest(*outs)}")
         del g_args, outs
         torch.cuda.empty_cache()
+    log(gha_kernel_check(x, row))
     del calls, b_calls, a_args, c_args, d_args, e_args, outk
     torch.cuda.empty_cache()
 
@@ -1531,6 +1599,8 @@ def main():
     c11 = counts()
     assert not any(c11.values()), c11        # ATRAC3+ has no TPU kernel
     assert trace.counter("launch.deposit") == 3, "G: one deposit a call"
+    launches["gha_greedy"] = trace.counter("launch.gha_greedy") // 3
+    assert launches["gha_greedy"] == 16, "H: 8 rounds a pass, two passes"
     fr11 = runtime.to_numpy(b11)
     assert fr11.shape == (s11, f11, 2048), fr11.shape
     t0 = time.perf_counter()

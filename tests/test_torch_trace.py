@@ -135,14 +135,19 @@ def test_span_tree_of_the_batch_call(codec, children):
 
 def test_at3p_call_counts_gha_rounds_and_no_host_sync():
     """An ATRAC3+ call counts 16 greedy rounds (8 on the whole window, 8
-    on the truncated-window refit), all under ``gha_extract``, read
-    nothing of the card, and on the CPU path no ``host_sync``."""
+    on the truncated-window refit), all under the two ``gha_greedy`` spans
+    inside ``gha_extract``, read nothing of the card, and on the CPU path
+    no ``host_sync``."""
     run = _middle_call("at3p")
     trace.enable()
     run()
     snap = trace.snapshot()
     assert snap["counters"]["gha_round"] == {
-        "total": 16, "by_span": {"gha_extract": 16}}
+        "total": 16, "by_span": {"gha_greedy": 16}}
+    by_id = {r["id"]: r for r in snap["records"]}
+    greedy = [r for r in snap["records"] if r["name"] == "gha_greedy"]
+    assert len(greedy) == 2
+    assert all(by_id[r["parent"]]["name"] == "gha_extract" for r in greedy)
     assert "host_sync" not in snap["counters"]
     assert [r["name"] for r in snap["records"] if r["parent"] is None] == [
         "at3p.encode_chunk", "at3p.pack"]
