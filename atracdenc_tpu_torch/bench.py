@@ -30,8 +30,9 @@ cpu``.  The legs:
   pinned host memory (MiB/s, as bench.py counts it): the PCIe link.
 * ATRAC1 (bench.py:68-91,220-229): the corpus cut to 8 streams x 512 x 512
   samples, ``models/atrac1/encoder.py::encode_frames``, the planes merged
-  per stream (``at1_units``) and ``device_pack.pack_device``; stream 0's
-  units are asserted equal to ``frame.pack``'s.  bench.py takes the better
+  per stream (``device_pack.merge_channels``) and
+  ``device_pack.pack_device``; stream 0's units are asserted equal to
+  ``frame.pack``'s.  bench.py takes the better
   of two routes (XLA and Pallas) here; the port has one on the card, kernel
   E, whose plain version is a test reference that never runs on a card.
 * ATRAC3+ (bench.py:94-110,230-236): the corpus cut to 8 streams x 128 x
@@ -86,7 +87,6 @@ REF_AT3P_FRAMES_PER_S = 930.0    # at3p_oracle (GHA-off flow)
 SHAPES = {"cuda": (64, 256), "cpu": (4, 32)}    # (streams, stereo frames)
 AT1_STREAMS, AT1_FRAMES = 8, 512                # bench.py:220
 AT3P_STREAMS, AT3P_FRAMES = 8, 128              # bench.py:230
-AT1_PLANES = ("short_mask", "bfu_idx", "wordlen", "sfi", "mant")
 AT3_DEFAULT = dict(frame_bytes=384, js=False, no_gain_control=False,
                    no_tonal=False)
 PIPELINE_CALLS, PIPELINE_DEPTH, COMPUTE_CALLS = 6, 2, 4
@@ -102,13 +102,6 @@ def corpus(streams, nframes, seed=42):
     return np.clip(base[None, None, :] * np.asarray([1.0, 0.8])[None, :, None]
                    + 0.05 * rng.standard_normal((streams, 2, t)),
                    -1, 1).astype(np.float32)
-
-
-def at1_units(planes):
-    """ATRAC1 planes [S, C, F, ...] -> [S*F*C, ...] in stream order, as
-    bench.py merges them per stream before packing."""
-    return {k: planes[k].transpose(1, 2).reshape((-1,) + planes[k].shape[3:])
-            for k in AT1_PLANES}
 
 
 def device_seconds(dev, fn):
@@ -241,8 +234,8 @@ def at1_encode(x1, use_rate_kernel=True):
     """The ATRAC1 leg's call: x1 [S, 2, T] -> [S * F * 2, 212] sound units,
     encode and device packer, kernel E (or ``bitalloc.allocate`` with
     ``use_rate_kernel=False``) in the rate control."""
-    return at1_pack.pack_device(at1_units(at1_encoder.encode_frames(
-        x1, use_rate_kernel=use_rate_kernel)))
+    return at1_pack.pack_device(at1_pack.merge_channels(
+        at1_encoder.encode_frames(x1, use_rate_kernel=use_rate_kernel)))
 
 
 def check_at1(x1, units, **route):
@@ -251,7 +244,7 @@ def check_at1(x1, units, **route):
     ``frame.pack``'s."""
     n = x1.shape[0] * 2 * (x1.shape[2] // 512)
     assert units.shape == (n, 212), units.shape
-    planes = at1_units(at1_encoder.encode_frames(x1, **route))
+    planes = at1_pack.merge_channels(at1_encoder.encode_frames(x1, **route))
     assert torch.equal(at1_pack.pack_device(planes), units)
     per_stream = n // x1.shape[0]
     host0 = at1_frame.pack({k: runtime.to_numpy(v[:per_stream])

@@ -22,8 +22,6 @@ import argparse
 import os
 import sys
 
-import numpy as np
-
 CODECS = ("atrac1", "atrac3", "atrac3_lp4", "atrac3plus")
 # codec -> allowed containers (reference main.cpp:168-194)
 _CONTAINERS = {"atrac1": {"aea", "raw"},
@@ -71,12 +69,6 @@ def build_parser():
     return p
 
 
-def _merge_channel_planes(planes):
-    """[C, F, ...] planes -> frame-major stream order [F*C, ...]."""
-    return {k: np.swapaxes(np.asarray(v), 0, 1).reshape((-1,) + v.shape[2:])
-            for k, v in planes.items()}
-
-
 def _split_channel_planes(planes, channels):
     """Stream order [F*C, ...] -> [C, F, ...] (drops ``valid``)."""
     return {k: v.reshape((v.shape[0] // channels, channels) + v.shape[1:])
@@ -86,6 +78,7 @@ def _split_channel_planes(planes, channels):
 def encode_atrac1(args):
     from atracdenc_tpu_torch.containers import aea, raw
     from atracdenc_tpu_torch.io import audio
+    from atracdenc_tpu_torch.models.atrac1 import device_pack as at1_pack
     from atracdenc_tpu_torch.models.atrac1 import exact_enc as at1_exact_enc
     from atracdenc_tpu_torch.models.atrac1 import frame as at1_frame
     from atracdenc_tpu_torch.utils import operator_log, progress
@@ -115,7 +108,7 @@ def encode_atrac1(args):
         planes = encode_track(pcm, progress=on_progress, device=args.device,
                               **opts)
         operator_log.warn_clipping(planes, pop=True)
-    frames = at1_frame.pack(_merge_channel_planes(planes))
+    frames = at1_frame.pack(at1_pack.merge_channels(planes))
     if args.container == "aea":
         aea.write(args.outfile, frames, channels, total)
     else:

@@ -13,9 +13,20 @@ from atracdenc_tpu_torch import runtime, trace
 from atracdenc_tpu_torch.models.atrac1 import tables as T
 from atracdenc_tpu_torch.ops.bitdeposit import deposit_fields
 
-__all__ = ["pack_device"]
+__all__ = ["pack_device", "merge_channels"]
 
+PLANES = ("short_mask", "bfu_idx", "wordlen", "sfi", "mant")
 _HEADER_WIDTHS = (2, 2, 2, 2, 3, 2, 3)
+
+
+def merge_channels(planes):
+    """Encoder planes [..., C, F, ...] (numpy arrays or tensors, with or
+    without a stream axis in front) -> the packers' one frame axis [N, ...]
+    in sound-unit order: streams one after another, each frame's channels
+    side by side.  Only the wire planes (``PLANES``) are kept."""
+    lead = planes["bfu_idx"].ndim - 2
+    return {k: planes[k].swapaxes(lead, lead + 1).reshape(
+        (-1,) + tuple(planes[k].shape[lead + 2:])) for k in PLANES}
 
 
 @trace.span("at1.pack")

@@ -12,7 +12,6 @@ axis: pcm [C, T] or [S, C, T], planes [..., C, F, ...].
 """
 import functools
 
-import numpy as np
 import torch
 
 from atracdenc_tpu_torch.models.atrac1 import tables as T
@@ -20,12 +19,14 @@ from atracdenc_tpu_torch import runtime, trace
 from atracdenc_tpu_torch.ops import psy, scale as scale_ops
 from atracdenc_tpu_torch.ops.at1_alloc import at1_allocate_block
 from atracdenc_tpu_torch.ops.transient import transient_mask
+from .. import track
 from . import bitalloc, filterbank
 from .mdct import mdct_frames
 
 CHUNK_LEFT = 3    # context frames: QMF-tree FIR reach (~140 samples) +
                   # MDCT prev-half + transient prev-block, each <= 1 frame
 CHUNK_RIGHT = 1   # the transient HPF reads 1 sample past the frame
+PER_FRAME = ()    # planes without a channel axis: none (models/track.py)
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,32 +127,18 @@ def encode_frames(pcm, bfu_idx_const=0, window_mode="auto", window_mask=0,
                   use_rate_kernel=True):
     """[..., C, T] PCM (T a multiple of 512) -> frame planes: short_mask
     [..., C, F, 3] bool, bfu_idx [..., C, F], wordlen / sfi [..., C, F, 52],
-    mant [..., C, F, 52, 20] (int32), clip_count / clip_max [..., C, F].
+    mant [..., C, F, 52, 20] (int32), clip_count / clip_max [..., C, F]: the
+    whole track as one chunk of ``encode_frames_chunk``.
 
     ``use_rate_kernel=False`` runs the rate control as tensor ops
     (``bitalloc.allocate``, the JAX package's ``use_pallas=False`` XLA path)
     on the tensors' device instead of kernel E; the bytes are the same."""
-    lead = pcm.shape[:-1]
-    f = pcm.shape[-1] // T.NUM_SAMPLES
-    low, mid, hi = filterbank.analysis(pcm)
-    if window_mode == "auto":
-        masks = torch.stack([transient_mask(low, 128),
-                             transient_mask(_invert_spectrum(mid), 128),
-                             transient_mask(_invert_spectrum(hi), 256)], dim=-1)
-    else:
-        masks = _fixed_masks(window_mask, lead + (f,), pcm.device)
-    specs = torch.cat([
-        mdct_frames(low.reshape(lead + (f, 128)), masks[..., 0], 0),
-        mdct_frames(mid.reshape(lead + (f, 128)), masks[..., 1], 1),
-        mdct_frames(hi.reshape(lead + (f, 256)), masks[..., 2], 2),
-    ], dim=-1)                                                # [..., C, F, 512]
-    planes, _ = _encode_specs(specs, masks, T.LOUD_FACTOR, bfu_idx_const,
-                              use_rate_kernel)
-    return planes
+    return encode_frames_chunk(pcm, None, None, bfu_idx_const, window_mode,
+                               window_mask, use_rate_kernel)[0]
 
 
 def _encode_window(pcm_ext, loud_init, bfu_idx_const, window_mode,
-                   window_mask, first, use_rate_kernel=True):
+                   window_mask, first, use_rate_kernel):
     """Chunk core: pcm_ext [..., C, (CHUNK_LEFT + f + 1) * 512] -> (planes
     of the f content frames, raw loudness carry [...]).  The context frames
     pin the filterbank, transient and MDCT couplings; the loudness IIR
@@ -201,12 +188,14 @@ def _encode_window(pcm_ext, loud_init, bfu_idx_const, window_mode,
 
 @trace.span("at1.encode_chunk")
 def encode_frames_chunk(pcm, state=None, next_head=None, bfu_idx_const=0,
-                        window_mode="auto", window_mask=0):
+                        window_mode="auto", window_mask=0,
+                        use_rate_kernel=True):
     """Exact chunked encode: pcm [..., C, k*512]; state = the previous
     chunk's carry ``{"pcm_tail": [..., C, 1536], "loud": [...]}`` (None at
     track start); next_head [..., C, 512] = the next chunk's first frame
-    (None at track end).  Concatenated chunk planes equal
-    ``encode_frames`` on the whole track.  Returns (planes, new_state)."""
+    (None at track end).  Concatenated chunk planes equal the planes of the
+    whole track as one chunk (``encode_frames``).  Returns (planes,
+    new_state)."""
     hist_len = CHUNK_LEFT * T.NUM_SAMPLES
     k = pcm.shape[-1]
     if state is None:
@@ -221,45 +210,21 @@ def encode_frames_chunk(pcm, state=None, next_head=None, bfu_idx_const=0,
         ext = torch.cat([hist, pcm, tail], dim=-1)
     planes, loud_last = _encode_window(ext, loud_init, bfu_idx_const,
                                        window_mode, window_mask,
-                                       first=state is None)
+                                       state is None, use_rate_kernel)
     return planes, {"pcm_tail": ext[..., k:hist_len + k], "loud": loud_last}
 
 
 def encode_track(pcm, bfu_idx_const=0, window_mode="auto", window_mask=0,
                  chunk_frames=2048, progress=None, device=None):
-    """NumPy wrapper: [C, T] PCM -> numpy planes [C, F, ...].  Pads to
-    whole frames; tracks longer than ``chunk_frames`` encode in exact chunks
-    (bounded device memory).  device: "cuda" (the default) or an explicit
-    "cpu".  progress: optional callback(percent) after each chunk."""
-    dev = runtime.device(device)
-    pcm = np.atleast_2d(np.asarray(pcm, np.float32))
-    pad = (-pcm.shape[1]) % T.NUM_SAMPLES
-    if pad:
-        pcm = np.pad(pcm, ((0, 0), (0, pad)))
-    f_total = pcm.shape[1] // T.NUM_SAMPLES
-    opts = dict(bfu_idx_const=bfu_idx_const, window_mode=window_mode,
-                window_mask=window_mask)
-
-    if not chunk_frames or f_total <= chunk_frames:
-        with trace.span("at1.track_chunk"):
-            planes = encode_frames(runtime.to_torch(pcm, dev), **opts)
-            out = {k: runtime.to_numpy(v) for k, v in planes.items()}
-        if progress is not None:
-            progress(100)
-        return out
-
-    state = None
-    outs = []
-    ns = T.NUM_SAMPLES
-    for a in range(0, f_total, chunk_frames):
-        b = min(a + chunk_frames, f_total)
-        with trace.span("at1.track_chunk"):
-            nxt = (runtime.to_torch(pcm[:, b * ns:(b + 1) * ns], dev)
-                   if b < f_total else None)
-            planes, state = encode_frames_chunk(
-                runtime.to_torch(pcm[:, a * ns:b * ns], dev), state, nxt,
-                **opts)
-            outs.append({k: runtime.to_numpy(v) for k, v in planes.items()})
-        if progress is not None:
-            progress(int(b * 100 / f_total))
-    return {k: np.concatenate([o[k] for o in outs], axis=1) for k in outs[0]}
+    """NumPy wrapper: [C, T] PCM -> numpy planes [C, F, ...], the track in
+    chunks of ``chunk_frames`` through ``encode_frames_chunk``
+    (``models/track.py``).  On the CPU the planes do not depend on
+    ``chunk_frames``, and tests hold that; on the card a chunk's shape can
+    move a float across a decision.  device: "cuda" (the default) or an
+    explicit "cpu".  progress: optional callback(percent) after each
+    chunk."""
+    def chunk(x, state, nxt):
+        return encode_frames_chunk(x, state, nxt, bfu_idx_const, window_mode,
+                                   window_mask)
+    return track.encode_track(chunk, pcm, T.NUM_SAMPLES, chunk_frames,
+                              PER_FRAME, "at1.track_chunk", progress, device)

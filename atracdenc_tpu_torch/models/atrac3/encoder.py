@@ -21,11 +21,13 @@ import torch
 from atracdenc_tpu_torch.models.atrac3 import tables as T
 from atracdenc_tpu_torch import runtime, trace
 from atracdenc_tpu_torch.ops import psy, scale as scale_ops
+from .. import track
 from . import device_pack, filterbank, gain, specblocks, tonal
 from .bitalloc import allocate, final_mantissas, quant_tensors
 from .mdct import first_level_scale, gain_divisors, mdct_frames
 
 _LOUD_CURVE = psy.create_loudness_curve(1024)
+PER_FRAME = ("loudness", "ms_shift")   # [..., F]; others [..., C, F, ...]
 
 
 @functools.lru_cache(maxsize=None)
@@ -284,46 +286,17 @@ def encode_track(pcm, frame_bytes=384, js=False, no_gain_control=True,
                  no_tonal=True, bfu_idx_const=0, chunk_frames=1024,
                  progress=None, device=None, use_rate_kernel=True,
                  fused_memo=False):
-    """NumPy wrapper: [C, T] PCM -> numpy planes.  Pads to whole frames and
-    encodes tracks longer than ``chunk_frames`` in exact chunks (the carry
-    state makes chunked output identical to whole-track output).
+    """NumPy wrapper: [C, T] PCM -> numpy planes, the track in chunks of
+    ``chunk_frames`` through ``encode_frames_chunk`` (``models/track.py``).
+    On the CPU the carry makes the planes independent of ``chunk_frames``,
+    and tests hold that; on the card a chunk's shape can move a float
+    across a decision.
 
     device: "cuda" (the default) or an explicit "cpu".
     progress: optional callback(percent) after each chunk."""
-    dev = runtime.device(device)
-    pcm = np.atleast_2d(np.asarray(pcm, np.float32))
-    c, t = pcm.shape
-    pad = (-t) % T.NUM_SAMPLES
-    if pad:
-        pcm = np.pad(pcm, ((0, 0), (0, pad)))
-    f_total = pcm.shape[1] // T.NUM_SAMPLES
-    opts = dict(frame_bytes=frame_bytes, js=js,
-                no_gain_control=no_gain_control, no_tonal=no_tonal,
-                bfu_idx_const=bfu_idx_const, use_rate_kernel=use_rate_kernel,
-                fused_memo=fused_memo)
-
-    if f_total <= chunk_frames:
-        with trace.span("at3.track_chunk"):
-            planes = encode_frames(runtime.to_torch(pcm, dev), **opts)
-            out = {kk: runtime.to_numpy(v) for kk, v in planes.items()}
-        if progress is not None:
-            progress(100)
-        return out
-
-    state = None
-    outs = []
-    n = T.NUM_SAMPLES
-    for a in range(0, f_total, chunk_frames):
-        b = min(a + chunk_frames, f_total)
-        with trace.span("at3.track_chunk"):
-            chunk = runtime.to_torch(pcm[:, a * n: b * n], dev)
-            nxt = None
-            if b < f_total:
-                nxt = runtime.to_torch(pcm[:, b * n: (b + 1) * n], dev)
-            planes, state = encode_frames_chunk(chunk, state, nxt, **opts)
-            outs.append({kk: runtime.to_numpy(v) for kk, v in planes.items()})
-        if progress is not None:
-            progress(int(b * 100 / f_total))
-    return {kk: np.concatenate([o[kk] for o in outs],
-                               axis=0 if outs[0][kk].ndim == 1 else 1)
-            for kk in outs[0]}
+    def chunk(x, state, nxt):
+        return encode_frames_chunk(x, state, nxt, frame_bytes, js,
+                                   no_gain_control, no_tonal, bfu_idx_const,
+                                   use_rate_kernel, fused_memo)
+    return track.encode_track(chunk, pcm, T.NUM_SAMPLES, chunk_frames,
+                              PER_FRAME, "at3.track_chunk", progress, device)

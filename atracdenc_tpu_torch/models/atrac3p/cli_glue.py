@@ -62,9 +62,7 @@ def encode_file(args):
                           progress=on_progress, device=args.device)
     dev = runtime.device(args.device)
     frames = runtime.to_numpy(pack_device(
-        {k: ({kk: runtime.to_torch(vv, dev) for kk, vv in v.items()}
-             if isinstance(v, dict) else runtime.to_torch(v, dev))
-         for k, v in planes.items()}, channels))
+        runtime.state_from_numpy(planes, dev), channels))
 
     container = args.container                 # resolved by cli.main
     if container == "oma":

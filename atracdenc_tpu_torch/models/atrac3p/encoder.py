@@ -1,4 +1,4 @@
-"""ATRAC3+ encoder in PyTorch: whole-track, batched.
+"""ATRAC3+ encoder in PyTorch, batched over tracks.
 
 Port of ``atracdenc_tpu/models/atrac3p/encoder.py`` (reference
 src/atrac/at3p/at3p.cpp:89-180): 16-band PQF analysis -> [GHA tonal model]
@@ -8,9 +8,11 @@ best-of-8 spectrum VLC table per quant unit -> NumQuantUnits shrink until
 the 2048-byte frame fits.
 
 The reference's one-frame look-ahead makes the first output frame silent
-and drops the final content frame; the whole-track form shifts the
-residual stream one frame right.  Without GHA the residual is the PQF
-output, a complete, valid ATRAC3+ stream.
+and drops the final content frame: output frame p carries content frame
+p - 1.  Without GHA the residual is the PQF output, a complete, valid
+ATRAC3+ stream.  Every path is the batched chunk call
+``encode_chunk_device``: a track is chunks of it (``encode_track``) or one
+chunk (``encode_frames_bytes``).
 
 Where JAX vmaps ``encode_frames_bytes`` over streams, the port takes pcm
 [C, T] or [S, C, T]; the core always runs with the stream axis in front.
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 
 from atracdenc_tpu_torch import runtime, trace
 from atracdenc_tpu_torch.ops import scale as scale_ops
+from .. import track
 from . import tables as T
 from . import pqf
 from . import gha
@@ -31,7 +34,9 @@ from .mdct import mdct_frames
 
 CHUNK_LEFT = 4      # context frames that pin every cross-frame coupling
 CHUNK_RIGHT = 1     # lookahead frames (GHA CheckNextFrame + synth region 2)
-_TONE_FRAME_AXIS_S = ("sharing", "leader")    # [S, F, ...]; others [S, C, F]
+# planes without a channel axis ([F, ...]; others [C, F, ...]), with the
+# stream axis in front inside the core (models/track.py)
+PER_FRAME = ("num_qu", "tones.sharing", "tones.leader")
 
 
 @lru_cache(maxsize=None)
@@ -93,30 +98,29 @@ def _frame_slice(v, ax, sl):
     return v[(slice(None),) * ax + (sl,)]
 
 
-def _core_impl(pcm, gha_mask, wb_refine, left, right, zero_tail,
-               with_history):
-    """Shared encode core over an (optionally) extended frame window;
-    pcm [S, C, T], every output with S in front.
-
-    left/right = 0, with_history = False: the whole-track path.  left >= 2,
-    right == 1, with_history = True: a chunk window, pcm = [OVERLAP PQF
-    history | left context frames | f content frames | 1 lookahead frame];
-    every cross-frame coupling reaches at most 4 frames left and 1 right, so
-    the sliced content frames equal a whole-track run's.  zero_tail (last
-    chunk): the lookahead frame's bands are zero, as past the track's end.
+def _core_impl(pcm, gha_mask, wb_refine, zero_tail, first):
+    """The encode core over a chunk window: pcm [S, C, T] = [OVERLAP PQF
+    history | CHUNK_LEFT context frames | f content frames | CHUNK_RIGHT
+    lookahead frame], every output with S in front.  Every cross-frame
+    coupling reaches at most CHUNK_LEFT frames left and CHUNK_RIGHT right,
+    so the content frames' outputs equal a whole track's.  zero_tail (a
+    track's last chunk): the lookahead frame's bands are zero, as past the
+    track's end.  first (a track's first chunk): output frame 0 carries no
+    tone frame, so its tone planes are zeros, not a silent context frame's
+    analysis.
 
     gha_mask: None = GHA disabled; else the reference's ghadbg bitmask
     (atrac3p.h:29-43): 1 = GHA_PASS_INPUT, 2 = GHA_WRITE_TONAL, 4 =
     GHA_WRITE_RESIUDAL, 8 = GHA_WIDEBAND (wb_refine: True = raw refine)."""
     s, c = pcm.shape[:2]
-    hist = pqf.OVERLAP if with_history else 0
-    fe = (pcm.shape[-1] - hist) // T.NUM_SAMPLES    # left + f + right
-    f = fe - left - right
+    left = CHUNK_LEFT
+    fe = (pcm.shape[-1] - pqf.OVERLAP) // T.NUM_SAMPLES   # left + f + right
+    f = fe - left - CHUNK_RIGHT
 
     with trace.span("pqf_analysis"):
-        bands = pqf.analysis(pcm, with_history=with_history)
+        bands = pqf.analysis(pcm, with_history=True)
         bands = bands.reshape(s, c, 16, fe, 128).transpose(2, 3)
-        if zero_tail and right:
+        if zero_tail:
             bands[:, :, fe - 1] = 0.0               # no frame past track end
     tone_out = None
     if gha_mask is None:
@@ -124,8 +128,9 @@ def _core_impl(pcm, gha_mask, wb_refine, left, right, zero_tail,
     else:
         with trace.span("gha_extract"):
             if gha_mask & 8:
-                raw = pcm[..., hist:].reshape(s, c, fe, T.NUM_SAMPLES).clone()
-                if zero_tail and right:
+                raw = pcm[..., pqf.OVERLAP:].reshape(
+                    s, c, fe, T.NUM_SAMPLES).clone()
+                if zero_tail:
                     raw[:, :, fe - 1] = 0.0
                 tone_planes = gha.extract_wideband(bands, raw,
                                                    refine_raw=bool(wb_refine))
@@ -141,24 +146,18 @@ def _core_impl(pcm, gha_mask, wb_refine, left, right, zero_tail,
             # at3p.cpp:128-131,173-177): out frame p carries tone frame p-1
             tone_out = {}
             for key, v in tone_planes.items():
-                ax = 1 if key in _TONE_FRAME_AXIS_S else 2
-                if left:
-                    tone_out[key] = _frame_slice(v, ax, slice(left - 1,
-                                                              left + f - 1))
-                else:
-                    pad = [0, 0] * (v.dim() - ax - 1) + [1, 0]
-                    tone_out[key] = F.pad(_frame_slice(v, ax, slice(None, -1)),
-                                          pad)
+                ax = track.frame_axis("tones." + key, PER_FRAME, lead=1)
+                v = _frame_slice(v, ax, slice(left - 1, left + f - 1))
+                if first:
+                    v = v.clone()
+                    _frame_slice(v, ax, 0).zero_()
+                tone_out[key] = v
     # one-frame delay: output frame p carries content frame p-1 (LOOK_AHEAD)
     with trace.span("mdct"):
-        if left:
-            # res window [left-1, left+f) plus one MDCT warm-up frame whose
-            # stored half seeds position left-1's overlap; drop its output
-            res_win = resid[:, :, left - 2: left + f - 1]
-            specs = mdct_frames(res_win * T.RESIDUAL_SCALE)[:, :, 1:]
-        else:
-            res = F.pad(resid[:, :, :-1], (0, 0, 0, 0, 1, 0))
-            specs = mdct_frames(res * T.RESIDUAL_SCALE)  # [S, C, F, 2048]
+        # res window [left-1, left+f) plus one MDCT warm-up frame whose
+        # stored half seeds position left-1's overlap; drop its output
+        res_win = resid[:, :, left - 2: left + f - 1]
+        specs = mdct_frames(res_win * T.RESIDUAL_SCALE)[:, :, 1:]
         blocks = gather_qu_blocks(specs)                 # [S, C, F, 32, 128]
 
     return (*_block_planes(blocks), tone_out)
@@ -192,19 +191,6 @@ def _block_planes(blocks):
     return sfi, mant, spec_tab, spec_bits
 
 
-def _with_streams(pcm):
-    return (pcm, True) if pcm.dim() == 3 else (pcm[None], False)
-
-
-def _drop_streams(core):
-    """Core outputs of a single stream without the stream axis."""
-    *arrays, tone_out = core
-    arrays = [a[0] for a in arrays]
-    if tone_out is not None:
-        tone_out = {key: v[0] for key, v in tone_out.items()}
-    return (*arrays, tone_out)
-
-
 def _fold_streams(core):
     """Core outputs [S, C, F, ...] -> [C, S*F, ...]: frames of every stream
     in one frame axis, stream-major (the tail and the packer are per
@@ -216,43 +202,25 @@ def _fold_streams(core):
 
     arrays = [fold(a, 2) for a in arrays]
     if tone_out is not None:
-        tone_out = {key: fold(v, 1 if key in _TONE_FRAME_AXIS_S else 2)
+        tone_out = {key: fold(v, track.frame_axis("tones." + key,
+                                                  PER_FRAME, lead=1))
                     for key, v in tone_out.items()}
     return (*arrays, tone_out)
 
 
-def _encode_core(pcm, gha_mask=7, wb_refine=None):
-    """Whole-track core on a tensor: pcm [C, T] (or [S, C, T]) -> (sfi,
-    mant, spec_tab, spec_bits, tone_out) on pcm's device."""
-    pcm, had = _with_streams(pcm)
-    core = _core_impl(pcm, gha_mask, wb_refine, 0, 0, False, False)
-    return core if had else _drop_streams(core)
-
-
 def core_frames(pcm, f0, f1, gha_mask=7, wb_refine=None, device=None):
-    """The whole-track core's output frames [f0, f1) of pcm [S, C, T]
-    (numpy): ``_encode_core`` itself when they are all the frames, else a
-    chunk window that reads the PQF history, the context frames before f0
-    and the lookahead frame after f1 from pcm (zeros past either end).
-    Output frame 0 carries no tone frame, so its tone planes are zeros as
-    in the whole-track core, not a silent context frame's analysis."""
+    """The encode core's output frames [f0, f1) of pcm [S, C, T] (numpy) ->
+    (sfi, mant, spec_tab, spec_bits, tone_out), each [S, ...]: the core of
+    ``encode_chunk_device`` on the same window, its PQF history, context
+    frames before f0 and lookahead frame after f1 read from pcm (zeros past
+    either end)."""
     dev = runtime.device(device)
     n, t = T.NUM_SAMPLES, pcm.shape[-1]
-    if f0 == 0 and f1 * n == t:
-        return _encode_core(runtime.to_torch(pcm, dev), gha_mask, wb_refine)
     a, b = f0 * n - pqf.OVERLAP - CHUNK_LEFT * n, (f1 + CHUNK_RIGHT) * n
     ext = np.pad(pcm[..., max(a, 0):min(b, t)],
                  ((0, 0), (0, 0), (max(-a, 0), max(b - t, 0))))
-    *arrays, tone_out = _core_impl(runtime.to_torch(ext, dev), gha_mask,
-                                   wb_refine, CHUNK_LEFT, CHUNK_RIGHT,
-                                   b > t, True)
-    if tone_out is not None and f0 == 0:
-        for key, v in tone_out.items():
-            v = v.clone()
-            v[(slice(None),) * (1 if key in _TONE_FRAME_AXIS_S else 2)
-              + (0,)] = 0
-            tone_out[key] = v
-    return (*arrays, tone_out)
+    return _core_impl(runtime.to_torch(ext, dev), gha_mask, wb_refine, b > t,
+                      f0 == 0)
 
 
 def core_dict(core):
@@ -281,38 +249,6 @@ def dryrun_sharded(mesh, mesh1):
         assert np.array_equal(got[k], ref[k]), f"AT3P sharded != unsharded: {k}"
 
 
-def _gha_mask_of(use_gha):
-    if use_gha is True:
-        return 7
-    if use_gha is False:
-        return None
-    return int(use_gha)
-
-
-def encode_frames_chunk(pcm, state=None, next_head=None, use_gha=True,
-                        wb_refine=False, device=None):
-    """``encode_chunk_device`` for one stream given as numpy: pcm [C,
-    k*2048] content samples, state = carry from the previous chunk (None at
-    track start), next_head [C, 2048] = the next chunk's first frame (None
-    at track end).  Returns (planes as numpy, state on the device);
-    concatenated chunk planes equal encode_track's on the whole padded
-    track."""
-    dev = runtime.device(device)
-    x = runtime.to_torch(np.asarray(pcm, np.float32), dev)[None]
-    nxt = (None if next_head is None else
-           runtime.to_torch(np.asarray(next_head, np.float32), dev)[None])
-    planes, state = encode_chunk_device(x, state, nxt, _gha_mask_of(use_gha),
-                                        wb_refine)
-    return _planes_numpy(planes), state
-
-
-def _planes_numpy(planes):
-    """Planes (tones as a nested dict) -> the same dict of numpy arrays."""
-    return {k: ({tk: runtime.to_numpy(tv) for tk, tv in v.items()}
-                if k == "tones" else runtime.to_numpy(v))
-            for k, v in planes.items()}
-
-
 @trace.span("at3p.encode_chunk")
 def encode_chunk_device(pcm, state=None, next_head=None, gha_mask=7,
                         wb_refine=None):
@@ -331,8 +267,8 @@ def encode_chunk_device(pcm, state=None, next_head=None, gha_mask=7,
     tail = (pcm.new_zeros((s, c, T.NUM_SAMPLES)) if next_head is None
             else next_head)
     ext = torch.cat([hist, pcm, tail], dim=-1)
-    core = _core_impl(ext, gha_mask, wb_refine, CHUNK_LEFT, CHUNK_RIGHT,
-                      next_head is None, True)
+    core = _core_impl(ext, gha_mask, wb_refine, next_head is None,
+                      state is None)
     with trace.span("finish_planes"):
         planes = _finish_planes_device(_fold_streams(core), c)
     return planes, {"pcm_hist": ext[..., t:t + hist_len].clone()}
@@ -350,52 +286,26 @@ def encode_chunk_bytes(pcm, state=None, next_head=None, gha_mask=7,
 
 def encode_track(pcm, use_gha=True, wb_refine=False, chunk_frames=512,
                  progress=None, device=None):
-    """[C, T] PCM -> ATRAC3+ frame planes (dict of numpy arrays).
+    """[C, T] PCM -> ATRAC3+ frame planes (dict of numpy arrays), the track
+    in chunks of ``chunk_frames`` through ``encode_chunk_device``
+    (``models/track.py``).  On the CPU the planes do not depend on
+    ``chunk_frames``, and tests hold that; on the card a chunk's shape can
+    move a float across a decision.
 
     use_gha: True -> GHA_ENABLED (mask 7); False -> GHA disabled (plain
     transform); int -> the reference's ghadbg mask (0..15, bit 3 = wideband
-    strategy).  wb_refine selects ghawbrefine=1 (raw).  Tracks longer than
-    chunk_frames encode in exact chunks; progress: optional
-    callback(percent).  device: "cuda" (the default) or an explicit "cpu"."""
-    dev = runtime.device(device)
-    pcm = np.atleast_2d(np.asarray(pcm, np.float32))
-    c, t = pcm.shape
-    pad = (-t) % T.NUM_SAMPLES
-    if pad:
-        pcm = np.pad(pcm, ((0, 0), (0, pad)))
-    f_total = pcm.shape[1] // T.NUM_SAMPLES
+    strategy).  wb_refine selects ghawbrefine=1 (raw).  progress: optional
+    callback(percent) after each chunk.  device: "cuda" (the default) or an
+    explicit "cpu"."""
+    gha_mask = (7 if use_gha is True else None if use_gha is False
+                else int(use_gha))
 
-    if chunk_frames and f_total > chunk_frames:
-        state = None
-        outs = []
-        ns = T.NUM_SAMPLES
-        for a in range(0, f_total, chunk_frames):
-            b = min(a + chunk_frames, f_total)
-            nxt = pcm[:, b * ns: (b + 1) * ns] if b < f_total else None
-            planes, state = encode_frames_chunk(
-                pcm[:, a * ns: b * ns], state, nxt, use_gha, wb_refine, dev)
-            outs.append(planes)
-            if progress is not None:
-                progress(int(b * 100 / f_total))
-        merged = {}
-        for k in outs[0]:
-            if k == "tones":
-                merged[k] = {tk: np.concatenate(
-                    [o[k][tk] for o in outs],
-                    axis=0 if tk in _TONE_FRAME_AXIS_S else 1)
-                    for tk in outs[0][k]}
-            else:
-                # num_qu is [F]; sfi/mant/spec_tab are [C, F, ...]
-                merged[k] = np.concatenate([o[k] for o in outs],
-                                           axis=0 if k == "num_qu" else 1)
-        return merged
-
-    core = _encode_core(runtime.to_torch(pcm, dev),
-                        gha_mask=_gha_mask_of(use_gha), wb_refine=wb_refine)
-    out = _planes_numpy(_finish_planes_device(core, c))
-    if progress is not None:
-        progress(100)
-    return out
+    def chunk(x, state, nxt):
+        return encode_chunk_device(x[None], state,
+                                   None if nxt is None else nxt[None],
+                                   gha_mask, wb_refine)
+    return track.encode_track(chunk, pcm, T.NUM_SAMPLES, chunk_frames,
+                              PER_FRAME, "at3p.track_chunk", progress, device)
 
 
 def _num_qu(total):
@@ -440,14 +350,11 @@ def _finish_planes_device(core, c):
 def encode_frames_bytes(pcm, channels, gha_mask=7, wb_refine=None):
     """Whole-track device path: [C, T] PCM -> [F, 2048] frame bytes, or
     [S, C, T] -> [S, F, 2048] (T a multiple of NUM_SAMPLES: pad as
-    encode_track does).  PQF, GHA, MDCT, scale, VLC costing, the numQU
-    shrink and the serialisation stay on pcm's device."""
-    x, had = _with_streams(pcm)
-    s = x.shape[0]
-    core = _core_impl(x, gha_mask, wb_refine, 0, 0, False, False)
-    planes = _finish_planes_device(_fold_streams(core), channels)
-    frames = pack_device(planes, channels)
-    return frames.reshape(s, -1, T.FRAME_BYTES) if had else frames
+    encode_track does; ``channels`` is C, as in the JAX signature): the
+    track as one chunk of ``encode_chunk_bytes``."""
+    x = pcm if pcm.dim() == 3 else pcm[None]
+    frames, _ = encode_chunk_bytes(x, None, None, gha_mask, wb_refine)
+    return frames if pcm.dim() == 3 else frames[0]
 
 
 def _num_tone_bands(tones):

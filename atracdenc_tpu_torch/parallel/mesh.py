@@ -18,7 +18,9 @@ chain of ``encode_track``, whose output equals the whole track's.  The
 columns of a row therefore run one after another; the chain spreads memory,
 not time.  ATRAC3+ carries only PCM history, so its sp ranks run at once,
 each reading its halo from the input.  A column that spans the whole track
-(sp = 1) runs the whole-track path.
+(sp = 1) is one chunk with no carry and no lookahead: the whole-track
+encode.  Columns join on each plane's frame axis, as each codec's encoder
+declares it (``PER_FRAME``, ``models/track.py``).
 
 Contract of every ``*_sharded`` function: each rank of the mesh passes the
 same global host batch, encodes its block on its device, and returns the
@@ -38,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from atracdenc_tpu_torch import kernels, runtime
+from atracdenc_tpu_torch.models import track
 from atracdenc_tpu_torch.models.atrac1 import decoder as at1_decoder
 from atracdenc_tpu_torch.models.atrac1 import encoder as at1_encoder
 from atracdenc_tpu_torch.models.atrac3 import device_pack as at3_pack
@@ -47,7 +50,6 @@ from atracdenc_tpu_torch.parallel import distributed as D
 
 AT1_FRAME, AT3_FRAME = 512, 1024
 _AT1_DIAG = ("clip_count", "clip_max")
-_PER_FRAME = ("loudness", "ms_shift", "bytes")      # [S, F, ...]
 
 
 class Mesh:
@@ -110,27 +112,12 @@ def make_mesh(n_devices=None, dp=None, device=None):
     return Mesh(dp, n // dp, device)
 
 
-def _frame_axis(key):
-    """Frame axis of a plane: [S, F, ...] for the per-frame planes, the
-    ATRAC3+ tone frames' sharing / leader, else [S, C, F, ...]."""
-    per_frame = _PER_FRAME + tuple(f"tones.{k}" for k in
-                                   at3p_encoder._TONE_FRAME_AXIS_S)
-    return 1 if key in per_frame else 2
-
-
-def _assemble(grid, axis=_frame_axis):
-    """grid[row][col] of {key: array} -> the global {key: array}: columns
-    joined on each key's frame axis (``axis`` None: replicated over sp,
-    column 0's), rows on the stream axis."""
-    def join(blocks, k):
-        ax = axis(k) if axis else None
-        if ax is None or len(blocks) == 1:
-            return blocks[0][k]
-        return np.concatenate([b[k] for b in blocks], axis=ax)
-    rows = [{k: join(r, k) for k in r[0]} for r in grid]
-    return {k: (rows[0][k] if len(rows) == 1
-                else np.concatenate([r[k] for r in rows], axis=0))
-            for k in rows[0]}
+def _assemble(grid, per_frame):
+    """grid[row][col] of {plane: array [S, ...]} -> the global {plane:
+    array}: columns joined on each plane's frame axis (``per_frame``: the
+    planes without a channel axis), rows on the stream axis."""
+    rows = [track.join(r, per_frame, lead=1) for r in grid]
+    return {k: np.concatenate([r[k] for r in rows], axis=0) for k in rows[0]}
 
 
 def _row(pcm, mesh):
@@ -158,10 +145,10 @@ def _row_block(rows, mesh, frame_len, block, carry):
     return {k: runtime.to_numpy(v) for k, v in out.items()}
 
 
-def _sharded(pcm, mesh, frame_len, block, carry=True):
+def _sharded(pcm, mesh, frame_len, block, per_frame, carry=True):
     rows = _row(pcm, mesh)
     return _assemble(mesh.gather(_row_block(rows, mesh, frame_len, block,
-                                            carry)))
+                                            carry)), per_frame)
 
 
 def _columns(rows, f0, f1, n, dev):
@@ -174,20 +161,11 @@ def _columns(rows, f0, f1, n, dev):
 
 # --- ATRAC1 -----------------------------------------------------------------
 
-def encode_batch(pcm):
-    """[S, C, T] PCM tensor -> ATRAC1 frame planes, batched over streams.
-
-    The clip_* operator diagnostics are dropped, as in the JAX package:
-    they are raw float maxima, not wire planes."""
-    return {k: v for k, v in at1_encoder.encode_frames(pcm).items()
-            if k not in _AT1_DIAG}
-
-
 def _at1_block(dev):
+    """ATRAC1 planes without the clip_* operator diagnostics, as in the JAX
+    package: they are raw float maxima, not wire planes."""
     def block(rows, f0, f1, state):
         x, nxt = _columns(rows, f0, f1, AT1_FRAME, dev)
-        if state is None and nxt is None:
-            return encode_batch(x), None
         planes, state = at1_encoder.encode_frames_chunk(x, state, nxt)
         return {k: v for k, v in planes.items() if k not in _AT1_DIAG}, state
     return block
@@ -196,7 +174,8 @@ def _at1_block(dev):
 def encode_batch_sharded(pcm, mesh):
     """ATRAC1 planes of a global batch pcm [S, C, T] (S % dp == 0, T a
     multiple of sp * 512) over the mesh -> numpy planes [S, C, F, ...]."""
-    return _sharded(pcm, mesh, AT1_FRAME, _at1_block(mesh.device))
+    return _sharded(pcm, mesh, AT1_FRAME, _at1_block(mesh.device),
+                    at1_encoder.PER_FRAME)
 
 
 def decode_batch_at1(planes):
@@ -218,7 +197,7 @@ def decode_batch_at1_sharded(planes, mesh):
     local = {k: runtime.to_torch(planes[k][start:start + count], mesh.device)
              for k in ("short_mask", "wordlen", "sfi", "mant")}
     pcm = runtime.to_numpy(decode_batch_at1(local))
-    return _assemble(mesh.gather({"pcm": pcm}), axis=None)["pcm"]
+    return np.concatenate([row[0] for row in mesh.gather(pcm)], axis=0)
 
 
 # --- ATRAC3 -----------------------------------------------------------------
@@ -227,6 +206,10 @@ def encode_batch_at3(pcm, js=False, frame_bytes=384):
     """[S, C, T] PCM tensor -> ATRAC3 default-mode frame planes."""
     return at3_encoder.encode_frames(pcm, frame_bytes=frame_bytes, js=js,
                                      no_gain_control=False, no_tonal=False)
+
+
+# the device packer's output: one plane, "bytes" [S, F, frame_bytes]
+_AT3_BYTES = ("bytes",)
 
 
 def _at3_block(dev, js, frame_bytes, pack):
@@ -247,7 +230,8 @@ def encode_batch_at3_sharded(pcm, mesh, js=False, frame_bytes=384):
     dp == 0, T a multiple of sp * 1024) -> numpy planes [S, C, F, ...]
     ([S, F] for loudness and ms_shift)."""
     return _sharded(pcm, mesh, AT3_FRAME,
-                    _at3_block(mesh.device, js, frame_bytes, False))
+                    _at3_block(mesh.device, js, frame_bytes, False),
+                    at3_encoder.PER_FRAME)
 
 
 def encode_batch_at3_bytes_sharded(pcm, mesh, js=False, frame_bytes=384):
@@ -255,7 +239,8 @@ def encode_batch_at3_bytes_sharded(pcm, mesh, js=False, frame_bytes=384):
     local, so each rank packs its own block.  pcm [S, C, T] -> [S, F,
     frame_bytes] uint8 (numpy, on every rank)."""
     return _sharded(pcm, mesh, AT3_FRAME,
-                    _at3_block(mesh.device, js, frame_bytes, True))["bytes"]
+                    _at3_block(mesh.device, js, frame_bytes, True),
+                    _AT3_BYTES)["bytes"]
 
 
 def encode_rows_at3_bytes(rows, mesh, js=False, frame_bytes=384):
@@ -264,7 +249,7 @@ def encode_rows_at3_bytes(rows, mesh, js=False, frame_bytes=384):
     each gets the row back once (``distributed.encode_batch_global``)."""
     block = _row_block(np.asarray(rows, np.float32), mesh, AT3_FRAME,
                        _at3_block(mesh.device, js, frame_bytes, True), True)
-    return _assemble([mesh.gather(block)[mesh.row]])["bytes"]
+    return _assemble([mesh.gather(block)[mesh.row]], _AT3_BYTES)["bytes"]
 
 
 # --- ATRAC3+ ----------------------------------------------------------------
@@ -277,7 +262,8 @@ def encode_core_at3p_sharded(pcm, mesh, gha_mask=7, wb_refine=None):
     def block(rows, f0, f1, state):
         return at3p_encoder.core_dict(at3p_encoder.core_frames(
             rows, f0, f1, gha_mask, wb_refine, mesh.device)), None
-    return _sharded(pcm, mesh, 2048, block, carry=False)
+    return _sharded(pcm, mesh, 2048, block, at3p_encoder.PER_FRAME,
+                    carry=False)
 
 
 # --- dry run ----------------------------------------------------------------

@@ -88,13 +88,15 @@ def _map(tree, fn):
 
 
 def state_from_numpy(state, dev):
-    """Chunk carry from numpy arrays — e.g. a JAX encoder's state after
-    ``jax.device_get`` — to tensors on ``dev``.  Takes either encoder's
-    layout: ATRAC3 ``{gain: {...}, mdct_prev, next_overlap, loudness,
-    pcm_tail}`` (``models/atrac3/encoder.init_state``) or ATRAC1
-    ``{pcm_tail, loud}`` (``models/atrac1/encoder.encode_frames_chunk``)."""
+    """A tree (nested dicts) of numpy arrays to tensors on ``dev``: a chunk
+    carry — e.g. a JAX encoder's state after ``jax.device_get``, in either
+    encoder's layout: ATRAC3 ``{gain: {...}, mdct_prev, next_overlap,
+    loudness, pcm_tail}`` (``models/atrac3/encoder.init_state``) or ATRAC1
+    ``{pcm_tail, loud}`` (``models/atrac1/encoder.encode_frames_chunk``) —
+    or a codec's planes."""
     return _map(state, lambda a: to_torch(a, dev))
 
 
 def state_to_numpy(state):
+    """``state_from_numpy``'s inverse: a tree of tensors to numpy."""
     return _map(state, to_numpy)

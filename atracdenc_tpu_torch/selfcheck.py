@@ -40,7 +40,7 @@ import sys
 import numpy as np
 
 from atracdenc_tpu_torch import runtime
-from atracdenc_tpu_torch.cli import _merge_channel_planes
+from atracdenc_tpu_torch.models.atrac1 import device_pack as at1_pack
 from atracdenc_tpu_torch.models.atrac1 import encoder as at1_encoder
 from atracdenc_tpu_torch.models.atrac1 import frame as at1_frame
 from atracdenc_tpu_torch.models.atrac3 import encoder as at3_encoder
@@ -93,10 +93,8 @@ def compute(device=None, modes=None):
                 at3_encoder.encode_frames_bytes(x3, **AT3_MODES[name]))
         elif name == "at1":
             x1 = runtime.to_torch(pcm[0][:, :t - t % 512], dev)
-            planes = {k: runtime.to_numpy(v)
-                      for k, v in at1_encoder.encode_frames(x1).items()
-                      if k not in ("clip_count", "clip_max")}
-            out[name] = at1_frame.pack(_merge_channel_planes(planes))
+            planes = runtime.state_to_numpy(at1_encoder.encode_frames(x1))
+            out[name] = at1_frame.pack(at1_pack.merge_channels(planes))
         elif name == "at3p":
             planes = at3p_encoder.encode_track(pcm[0][:, :t - t % 2048],
                                                device=dev.type)

@@ -27,61 +27,60 @@ import os
 import sys
 import time
 
-import numpy as np
 
-
-def _transcode(args, dev, pcm, out):
-    """Encode, pack and write one file's PCM [C, T] (the spans ``encode``,
-    ``pack`` and ``write``)."""
-    from atracdenc_tpu_torch import runtime, trace
+def _codecs(args):
+    """The transcoder's table: codec -> (its ``encode_track``, the options
+    it takes, the device packer (planes on the card, channels -> frame
+    bytes), the container writer (path, frames, PCM [C, T]), the output's
+    extension)."""
     from atracdenc_tpu_torch.containers import aea, oma
-    channels = pcm.shape[0]
-    if args.codec == "atrac1":
-        from atracdenc_tpu_torch.models.atrac1.device_pack import pack_device
-        from atracdenc_tpu_torch.models.atrac1.encoder import encode_track
-        with trace.span("encode"):
-            planes = encode_track(pcm, device=dev)
-        with trace.span("pack"):
-            merged = {k: runtime.to_torch(np.swapaxes(v, 0, 1).reshape(
-                (-1,) + v.shape[2:]), dev) for k, v in planes.items()}
-            frames = runtime.to_numpy(pack_device(merged))
-        with trace.span("write"):
-            aea.write(out + ".tmp", frames, channels, pcm.shape[1])
-            os.replace(out + ".tmp", out)
-    elif args.codec == "atrac3":
-        from atracdenc_tpu_torch.models.atrac3 import tables as T3
-        from atracdenc_tpu_torch.models.atrac3.device_pack import pack_device
-        from atracdenc_tpu_torch.models.atrac3.encoder import encode_track
-        _, fsz, js = T3.container_params_for_bitrate(args.bitrate * 1024)
-        with trace.span("encode"):
-            planes = encode_track(pcm, frame_bytes=fsz, js=js,
-                                  no_gain_control=False, no_tonal=False,
-                                  chunk_frames=args.chunk_frames, device=dev)
-        with trace.span("pack"):
-            frames = runtime.to_numpy(pack_device(
-                {k: runtime.to_torch(v, dev) for k, v in planes.items()},
-                fsz, js=js))
-        with trace.span("write"):
-            oma.write(out + ".tmp", frames, oma.CODEC_ATRAC3, fsz,
-                      channels=channels, joint_stereo=js)
-            os.replace(out + ".tmp", out)
-    else:
-        from atracdenc_tpu_torch.models.atrac3p import tables as TP
-        from atracdenc_tpu_torch.models.atrac3p.device_pack import pack_device
-        from atracdenc_tpu_torch.models.atrac3p.encoder import encode_track
-        with trace.span("encode"):
-            planes = encode_track(pcm, device=dev)
-        with trace.span("pack"):
-            dev_planes = {k: ({kk: runtime.to_torch(vv, dev)
-                                   for kk, vv in v.items()}
-                              if isinstance(v, dict)
-                              else runtime.to_torch(v, dev))
-                          for k, v in planes.items()}
-            frames = runtime.to_numpy(pack_device(dev_planes, channels))
-        with trace.span("write"):
-            oma.write(out + ".tmp", frames, oma.CODEC_ATRAC3PLUS,
-                      TP.FRAME_BYTES, channels=channels)
-            os.replace(out + ".tmp", out)
+    from atracdenc_tpu_torch.models.atrac1 import device_pack as pack1
+    from atracdenc_tpu_torch.models.atrac1 import encoder as enc1
+    from atracdenc_tpu_torch.models.atrac3 import device_pack as pack3
+    from atracdenc_tpu_torch.models.atrac3 import encoder as enc3
+    from atracdenc_tpu_torch.models.atrac3 import tables as T3
+    from atracdenc_tpu_torch.models.atrac3p import device_pack as pack3p
+    from atracdenc_tpu_torch.models.atrac3p import encoder as enc3p
+    from atracdenc_tpu_torch.models.atrac3p import tables as TP
+    _, fsz, js = T3.container_params_for_bitrate(args.bitrate * 1024)
+    return {
+        "atrac1": (
+            enc1.encode_track, {},
+            lambda planes, c: pack1.pack_device(pack1.merge_channels(planes)),
+            lambda path, frames, pcm: aea.write(path, frames, pcm.shape[0],
+                                                pcm.shape[1]),
+            ".aea"),
+        "atrac3": (
+            enc3.encode_track,
+            dict(frame_bytes=fsz, js=js, no_gain_control=False,
+                 no_tonal=False, chunk_frames=args.chunk_frames),
+            lambda planes, c: pack3.pack_device(planes, fsz, js=js),
+            lambda path, frames, pcm: oma.write(
+                path, frames, oma.CODEC_ATRAC3, fsz, channels=pcm.shape[0],
+                joint_stereo=js),
+            ".oma"),
+        "atrac3plus": (
+            enc3p.encode_track, {}, pack3p.pack_device,
+            lambda path, frames, pcm: oma.write(
+                path, frames, oma.CODEC_ATRAC3PLUS, TP.FRAME_BYTES,
+                channels=pcm.shape[0]),
+            ".oma"),
+    }
+
+
+def _transcode(codec, dev, pcm, out):
+    """Encode, pack and write one file's PCM [C, T] with the table row
+    ``codec`` (the spans ``encode``, ``pack`` and ``write``)."""
+    from atracdenc_tpu_torch import runtime, trace
+    encode_track, opts, pack, write, _ = codec
+    with trace.span("encode"):
+        planes = encode_track(pcm, device=dev, **opts)
+    with trace.span("pack"):
+        frames = runtime.to_numpy(pack(runtime.state_from_numpy(planes, dev),
+                                       pcm.shape[0]))
+    with trace.span("write"):
+        write(out + ".tmp", frames, pcm)
+        os.replace(out + ".tmp", out)
 
 
 def _shares(records):
@@ -143,12 +142,12 @@ def main(argv=None):
     if args.trace:
         trace.enable(cuda=dev.type == "cuda")
 
+    codec = _codecs(args)[args.codec]
     t0 = time.perf_counter()
     total_samples = 0
     for path in args.inputs:
         name = os.path.splitext(os.path.basename(path))[0]
-        ext = ".aea" if args.codec == "atrac1" else ".oma"
-        out = os.path.join(args.out_dir, name + ext)
+        out = os.path.join(args.out_dir, name + codec[-1])
         if args.resume and os.path.exists(out):
             print(f"skip {path}: {out} exists")
             continue
@@ -160,7 +159,7 @@ def main(argv=None):
                       file=sys.stderr)
                 continue
             total_samples += pcm.shape[1]
-            _transcode(args, dev, pcm, out)
+            _transcode(codec, dev, pcm, out)
         print(f"{path} -> {out}")
 
     dt = time.perf_counter() - t0

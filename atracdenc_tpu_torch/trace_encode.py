@@ -43,7 +43,7 @@ import time
 import torch
 
 from atracdenc_tpu_torch import kernels, trace
-from atracdenc_tpu_torch.bench import SHAPES, at1_units, corpus, device_seconds
+from atracdenc_tpu_torch.bench import SHAPES, corpus, device_seconds
 
 STREAMS, FRAMES = SHAPES["cuda"]
 TOP = 10
@@ -312,7 +312,7 @@ def main(argv=None):
 
     def at1_call():
         planes, _ = enc1.encode_frames_chunk(x3, st1, x3[..., :512])
-        return pack1.pack_device(at1_units(planes))
+        return pack1.pack_device(pack1.merge_channels(planes))
 
     out["atrac1"] = _trace(at1_call, {
         "sound_units": STREAMS * 2 * FRAMES * 2})

@@ -34,10 +34,10 @@ import sys
 import numpy as np
 
 from atracdenc_tpu_torch import runtime
-from atracdenc_tpu_torch.bench import at1_units
 from atracdenc_tpu_torch.containers import aea
 from atracdenc_tpu_torch.golden_check import GOLDEN
 from atracdenc_tpu_torch.models.atrac1 import bitalloc, encoder, filterbank
+from atracdenc_tpu_torch.models.atrac1.device_pack import merge_channels
 from atracdenc_tpu_torch.models.atrac1 import frame
 from atracdenc_tpu_torch.models.atrac1 import tables as T
 from atracdenc_tpu_torch.ops import psy, scale as scale_ops
@@ -77,6 +77,13 @@ STAGES = (
 # the rate-control stage of ``use_rate_kernel=False``
 _TENSOR_OP_ALLOC = ("bitalloc.allocate", bitalloc, "allocate",
                     ("bfu_idx", "wordlen"), 0)
+# the frames a stage sees before and after the track's in the one-chunk
+# window of ``encoder._encode_window``: the QMF reads the context frames and
+# the lookahead, the transient detector the lookahead, and the MDCT one
+# warm-up frame before the first; every other stage sees the track's
+_WINDOW = {"analysis": (encoder.CHUNK_LEFT, encoder.CHUNK_RIGHT),
+           "transient_mask": (0, encoder.CHUNK_RIGHT),
+           "mdct_frames": (1, 0)}
 
 
 def _stages(kw):
@@ -87,11 +94,13 @@ def _stages(kw):
                  else s for s in STAGES)
 
 
-def _at(t, grid, s, c, fi):
+def _at(t, grid, s, c, fi, window=(0, 0)):
     """The (stream, channel, frame) slice of an encoder tensor, on the CPU:
     [S, C, F, ...] planes, [S, C, F * n] band signals (n samples a frame)
-    and [S, F] loudness tracks; None for any other layout (constants)."""
-    n_s, n_c, n_f = grid
+    and [S, F] loudness tracks, F counting the stage's ``window`` frames
+    before and after the track's; None for any other layout (constants)."""
+    n_s, n_c, n_f = grid[0], grid[1], grid[2] + sum(window)
+    grid, fi = (n_s, n_c, n_f), fi + window[0]
     if t.dim() >= 3 and tuple(t.shape[:3]) == grid:
         return t[s, c, fi].cpu()
     if t.dim() == 3 and tuple(t.shape[:2]) == (n_s, n_c) \
@@ -104,7 +113,7 @@ def _at(t, grid, s, c, fi):
 
 
 def unit_of(s, c, fi, channels, frames):
-    """Row of (stream, channel, frame) in ``bench.at1_units``' order:
+    """Row of (stream, channel, frame) in ``merge_channels``' order:
     stream-major, frame-major, channel-minor."""
     return (s * frames + fi) * channels + c
 
@@ -117,7 +126,7 @@ def unit_index(u, channels, frames):
 def pack_units(planes):
     """Planes [S, C, F, ...] (tensors) -> [S * F * C, 212] uint8 units."""
     return frame.pack({k: runtime.to_numpy(v)
-                       for k, v in at1_units(planes).items()})
+                       for k, v in merge_channels(planes).items()})
 
 
 def first_plane(ours, ref):
@@ -155,7 +164,7 @@ def divergent_stages(pcm, frames=None, device=None, ref_device="cpu", **kw):
     pcm [C, T] or [S, C, T] numpy; kw: ``encode_frames`` options.
     ``frames`` [(stream, channel, frame)] (default: every unit whose packed
     bytes differ).  Returns one dict per unit: ``unit`` (its row in
-    ``bench.at1_units``' order), ``stream``, ``channel``, ``frame``,
+    ``merge_channels``' order), ``stream``, ``channel``, ``frame``,
     ``first_plane`` (wire order; None where the bytes are equal),
     ``stage`` (the first of ``STAGES`` whose integer or decision outputs
     differ there), ``outputs`` (those outputs), ``ulp`` / ``peak_ulp``
@@ -188,9 +197,10 @@ def divergent_stages(pcm, frames=None, device=None, ref_device="cpu", **kw):
         for label, mod, attr, names, _ in stages:
             a_r, k_r, o_r = rec_r[label]
             a_d, k_d, o_d = rec_d[label]
-            out_r = {n: _at(v, grid, s, c, fi)
+            win = _WINDOW.get(attr, (0, 0))
+            out_r = {n: _at(v, grid, s, c, fi, win)
                      for n, v in _outputs(o_r, names).items()}
-            out_d = {n: _at(v, grid, s, c, fi)
+            out_d = {n: _at(v, grid, s, c, fi, win)
                      for n, v in _outputs(o_d, names).items()}
             differ = [n for n, v in out_r.items() if v is not None
                       and _is_decision(v) and not v.equal(out_d[n])]
@@ -203,7 +213,8 @@ def divergent_stages(pcm, frames=None, device=None, ref_device="cpu", **kw):
             fn = getattr(mod, attr)
             in_d = _inputs(fn, a_d, k_d)
             for n, v in _inputs(fn, a_r, k_r).items():
-                vr, vd = _at(v, grid, s, c, fi), _at(in_d[n], grid, s, c, fi)
+                vr = _at(v, grid, s, c, fi, win)
+                vd = _at(in_d[n], grid, s, c, fi, win)
                 if vr is None:
                     continue
                 if _is_decision(vr):
@@ -217,7 +228,7 @@ def divergent_stages(pcm, frames=None, device=None, ref_device="cpu", **kw):
             if label not in replays:
                 replays[label] = _outputs(fn(*_to(a_r, dev), **_to(k_r, dev)),
                                           names)
-            same = all(v.equal(_at(replays[label][n], grid, s, c, fi))
+            same = all(v.equal(_at(replays[label][n], grid, s, c, fi, win))
                        for n, v in out_r.items()
                        if v is not None and _is_decision(v))
             e.update(stage=label, outputs=differ,

@@ -1007,9 +1007,11 @@ def main():
     from atracdenc_tpu_torch import bench, cli, kernels, runtime
     # the bench's shapes: ATRAC3 64 x 256 stereo frames, ATRAC1 8 x 2 x 512
     # sound units (bench.py:220), ATRAC3+ 8 x 128 stereo frames (bench.py:230)
-    from atracdenc_tpu_torch.bench import (AT1_FRAMES, AT1_PLANES, AT1_STREAMS,
+    from atracdenc_tpu_torch.bench import (AT1_FRAMES, AT1_STREAMS,
                                            AT3P_FRAMES, AT3P_STREAMS, SHAPES,
-                                           at1_units, corpus)
+                                           corpus)
+    from atracdenc_tpu_torch.models.atrac1.device_pack import (
+        PLANES as AT1_PLANES, merge_channels)
     STREAMS, NFRAMES = SHAPES["cuda"]
     from atracdenc_tpu_torch.containers import aea, at3, oma, rm
     from atracdenc_tpu_torch.io import audio, wav
@@ -1213,7 +1215,7 @@ def main():
     g_legs = {
         "at1": [a for a, _ in capture(
             [(at1_pack, "deposit_fields", "G")], lambda: at1_pack.pack_device(
-                at1_units(at1_encoder.encode_frames(x1))))["G"]],
+                merge_channels(at1_encoder.encode_frames(x1))))["G"]],
         "at3": [a for a, _ in capture(
             [(device_pack, "deposit_fields", "G")],
             lambda: device_pack.pack_device_batch(
@@ -1268,8 +1270,7 @@ def main():
                                   ("at1_stress_pcm", "at1_stress_ref.aea", 0.97)):
         pcm_g = np.load(os.path.join(gdir, f"{name}.npz"))["pcm_in"]
         planes = at1_encoder.encode_track(pcm_g, device="cuda")
-        units = at1_frame.pack({k: np.swapaxes(planes[k], 0, 1).reshape(
-            (-1,) + planes[k].shape[2:]) for k in AT1_PLANES})
+        units = at1_frame.pack(merge_channels(planes))
         ref, _, _, _ = aea.read(os.path.join(gdir, ref_file))
         ident = float((units == ref).mean())
         log(f"[4 golden] {name} (ATRAC1): byte identity vs reference "
@@ -1392,12 +1393,12 @@ def main():
 
     # --- 7. ATRAC1 real size: bench.py's AT1 leg; E's counter zeroed just
     # before and read just after
-    at1_pack.pack_device(at1_units(at1_encoder.encode_frames(x1)))   # warm
+    at1_pack.pack_device(merge_channels(at1_encoder.encode_frames(x1)))  # warm
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
     planes1 = at1_encoder.encode_frames(x1)
-    units_dev = at1_pack.pack_device(at1_units(planes1))
+    units_dev = at1_pack.pack_device(merge_channels(planes1))
     torch.cuda.synchronize()
     t1 = time.perf_counter() - t0
     launches["at1_allocate_block"] = counts()["E"]
@@ -1406,7 +1407,7 @@ def main():
     assert launches["deposit_fields.at1"] == 1, launches
     n_units = AT1_STREAMS * CHANNELS * AT1_FRAMES
     units_host = at1_frame.pack({k: runtime.to_numpy(v)
-                                 for k, v in at1_units(planes1).items()})
+                                 for k, v in merge_channels(planes1).items()})
     assert units_dev.shape == (n_units, 212)
     assert np.array_equal(runtime.to_numpy(units_dev), units_host), \
         "ATRAC1 device packer differs from frame.pack"

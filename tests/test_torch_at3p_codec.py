@@ -184,9 +184,10 @@ def _chunk_pcm(frames, seed=5):
 def test_chunked_equals_whole_track(channels, use_gha):
     """Bytes equal, and every plane that reaches them: the spectral planes,
     and the tone waves where valid.  (A tone slot that is not valid is
-    never written; output frame 0's tone planes are the whole track's zero
-    padding but a silent context frame's analysis in a chunk, in the JAX
-    package as here.)"""
+    never written; in the JAX package output frame 0's tone planes are the
+    whole track's zero padding but a silent context frame's analysis in a
+    chunk.  Here both are chunks of one call, which zeroes output frame 0's
+    tone planes in a track's first chunk, so every tone plane is equal.)"""
     pcm = _chunk_pcm(6)[:channels]
     whole = encoder.encode_track(pcm, use_gha=use_gha, chunk_frames=0,
                                  device="cpu")
@@ -203,6 +204,7 @@ def test_chunked_equals_whole_track(channels, use_gha):
         for k in ("freq", "amp_sf", "phase"):
             assert_equal(np.where(w["valid"], w[k], 0),
                          np.where(c["valid"], c[k], 0), k)
+        _assert_planes(w, c)
 
 
 @pytest.fixture(scope="module")

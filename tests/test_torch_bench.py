@@ -98,6 +98,7 @@ def test_leg_digests_are_the_bytes_of_the_legs(tiny_run):
     here (ATRAC3: frame.pack per stream; ATRAC1: frame.pack of the merged
     units), so that the card's digests can be held against chip_smoke.py."""
     import hashlib
+    from atracdenc_tpu_torch.models.atrac1 import device_pack as at1_pack
     from atracdenc_tpu_torch.models.atrac1 import encoder as at1_encoder
     from atracdenc_tpu_torch.models.atrac1 import frame as at1_frame
     from atracdenc_tpu_torch.models.atrac3 import encoder, frame
@@ -106,7 +107,8 @@ def test_leg_digests_are_the_bytes_of_the_legs(tiny_run):
     x = torch.from_numpy(bench.corpus(1, 2))
     planes = encoder.encode_frames(x, no_gain_control=False, no_tonal=False)
     at3 = frame.pack({k: to_numpy(v[0]) for k, v in planes.items()}, 384)
-    planes1 = bench.at1_units(at1_encoder.encode_frames(x[:, :, :512 * 4]))
+    planes1 = at1_pack.merge_channels(
+        at1_encoder.encode_frames(x[:, :, :512 * 4]))
     at1 = at1_frame.pack({k: to_numpy(v) for k, v in planes1.items()})
     digest = {"at3": hashlib.sha256(at3[None].tobytes()).hexdigest(),
               "at1": hashlib.sha256(at1.tobytes()).hexdigest()}

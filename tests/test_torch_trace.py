@@ -254,7 +254,7 @@ def short_wav(tmp_path_factory):
 
 @pytest.mark.parametrize("codec,chunk", [("atrac1", "at1.track_chunk"),
                                          ("atrac3", "at3.track_chunk"),
-                                         ("atrac3plus", None)])
+                                         ("atrac3plus", "at3p.track_chunk")])
 def test_transcoder_trace_file(codec, chunk, short_wav, tmp_path, capsys):
     out = str(tmp_path / "spans.json")
     assert transcode.main([short_wav, short_wav, "--codec", codec,
@@ -276,10 +276,9 @@ def test_transcoder_trace_file(codec, chunk, short_wav, tmp_path, capsys):
         for e in kids:
             assert f["ts"] <= e["ts"]
             assert e["ts"] + e["dur"] <= f["ts"] + f["dur"]
-        if chunk is not None:
-            enc = next(e for e in kids if e["name"] == "encode")
-            assert any(e["name"] == chunk and e["args"]["parent"]
-                       == enc["args"]["id"] for e in spans)
+        enc = next(e for e in kids if e["name"] == "encode")
+        assert any(e["name"] == chunk and e["args"]["parent"]
+                   == enc["args"]["id"] for e in spans)
 
 
 # the benchmark's readers of the tracer ---------------------------------

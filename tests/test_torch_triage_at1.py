@@ -14,8 +14,8 @@ import torch
 
 from atracdenc_tpu.models.atrac1 import encoder as jenc
 from atracdenc_tpu.models.atrac1 import frame as jframe
-from atracdenc_tpu_torch import bench, triage_at1
-from atracdenc_tpu_torch.models.atrac1 import encoder, frame
+from atracdenc_tpu_torch import triage_at1
+from atracdenc_tpu_torch.models.atrac1 import device_pack, encoder, frame
 from atracdenc_tpu_torch.models.atrac1 import tables as T
 from atracdenc_tpu_torch.testing import cpu_setup, roll_jax_scans
 
@@ -50,7 +50,8 @@ def test_stage_finder_names_a_one_ulp_nudge(monkeypatch, where):
     the run under test moves it up by one ulp: the scaler's lower_bound
     picks the next scale factor there.  The finder names that unit (row
     ``(s * F + f) * C + c``), ``scale.scale_blocks``, a 1-ulp gap in its
-    input, and ``knife_edge``."""
+    input, and ``knife_edge``.  The MDCT's frame 0 is the one-chunk
+    window's warm-up frame, so the track's frame f is the call's f + 1."""
     s, c, f = where
     orig = encoder.mdct_frames
     calls = []
@@ -60,14 +61,14 @@ def test_stage_finder_names_a_one_ulp_nudge(monkeypatch, where):
         if band != 0:
             return spec
         spec = spec.clone()
-        peak = float(spec[s, c, f, :8].abs().max())
+        peak = float(spec[s, c, f + 1, :8].abs().max())
         table = torch.as_tensor(T.SCALE_TABLE)
         v = table[int((table <= 2 * peak).sum())]
         assert v < 1.0
         if not calls:                    # the run under test
             v = torch.nextafter(v, torch.tensor(2.0))
         calls.append(1)
-        spec[s, c, f, 0] = v
+        spec[s, c, f + 1, 0] = v
         return spec
 
     monkeypatch.setattr(encoder, "mdct_frames", nudged)
@@ -143,13 +144,13 @@ def test_every_stage_replays_from_its_captured_inputs(kernel):
 
 
 def test_unit_rows_follow_the_bench_order():
-    """``unit_of`` / ``unit_index`` name the row that ``bench.at1_units``
+    """``unit_of`` / ``unit_index`` name the row that ``merge_channels``
     gives each (stream, channel, frame), for 2 streams x 2 channels x 3
     frames."""
     n_s, n_c, n_f = 2, 2, 3
     tag = torch.arange(n_s * n_c * n_f).reshape(n_s, n_c, n_f)
     planes = {k: tag for k in PLANES}
-    rows = bench.at1_units(planes)["bfu_idx"]
+    rows = device_pack.merge_channels(planes)["bfu_idx"]
     for s in range(n_s):
         for c in range(n_c):
             for f in range(n_f):
