@@ -55,6 +55,9 @@ _SIGNATURES = {
     #  freq, sf, ph, valid, max_amp, x_work, lists, counts, lane_rounds,
     #  lanes, stream)
     "gha_greedy": [_P] * 18 + [_I, _P],
+    # (mant, spec_tab, num_qu, pos, book, values, widths, offsets, bits,
+    #  n_frames, book_len, stream)
+    "at3p_spectrum_fields": [_P] * 9 + [_L, _I, _P],
 }
 
 

@@ -8,8 +8,11 @@ the host ``frame.pack``, producing the fixed 2048-byte frames with
   * the header / wordlen sections depend only on numQU: per-numQU field
     tables, one row gathered per frame;
   * per-QU spectra: one merged field per VLC code group (group flag, code
-    and sign bits in one field of at most 18 bits), over the static
-    (wordlen, block length) classes and the 8 spectrum table families, with
+    and sign bits in one field of at most 18 bits), packed 2,048 slots a
+    channel with their offsets and the section's bits: kernel I
+    (``csrc/at3p_spectrum.cu``) on a card, codes each group at its QU's
+    chosen table only; the plain version codes the static (wordlen, block
+    length) classes at all 8 table families and keeps the chosen one, with
     the codebooks read by an integer gather (the JAX form uses an exact
     one-hot matmul for the same lookup);
   * the tonal block has a fixed entity grid whose widths are masked and
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from atracdenc_tpu_torch import trace
+from atracdenc_tpu_torch import kernels, trace
 from atracdenc_tpu_torch.ops.bitdeposit import deposit_fields
 from . import frame as host_frame
 from . import tables as T
@@ -119,6 +122,8 @@ def _table(name, dev):
         a = const_bits(name[1]).astype(np.int32)
     elif name == "code_tab":                  # widths, offsets of its header
         a = np.asarray([[1, 2, 1], [0, 1, 3]], np.int32)
+    elif name == "spec_book":                 # kernel I's tables
+        a = _spec_book()
     else:                                     # ("nq", channels)
         return tuple(torch.as_tensor(x, device=dev)
                      for x in _nq_tables(name[1]))
@@ -154,26 +159,19 @@ def _qu_classes():
     return classes
 
 
-@trace.span("spectrum_fields")
-def _spec_group_fields(mant, spec_tab):
-    """Merged spectrum fields for all 32 QUs of one channel.
-
-    mant [N, 32, 128] int32, spec_tab [N, 32] int32 (family 0..7).
-    Returns (values [N, 32, 128] int64, widths [N, 32, 128] int32): slot g
-    of QU q is that QU's g-th code group (flag + code + signs merged);
-    unused slots have width 0.  Offsets are not assigned here."""
+def spectrum_fields_torch(mant, spec_tab, num_qu, pos):
+    """Plain version of ``spectrum_fields``; arguments and results as
+    there.  Per (wordlen, block length) class of QUs it codes every group
+    at each of the 8 table families and keeps the family each QU chose."""
     n = mant.shape[0]
     dev = mant.device
-    vals = torch.zeros((n, 32, 128), dtype=torch.int64, device=dev)
-    wids = torch.zeros((n, 32, 128), dtype=torch.int32, device=dev)
-
+    in_nq = torch.arange(32, device=dev)[None, :] < num_qu[:, None]
+    vals, wids = [], []
     for q0, q1, wl, ln in _qu_classes():
         m = mant[:, q0:q1, :ln]                  # [N, Q, ln]
         fam = spec_tab[:, q0:q1]                 # [N, Q]
-        cls_v = torch.zeros(m.shape[:2] + (128,), dtype=torch.int64,
-                            device=dev)
-        cls_w = torch.zeros(m.shape[:2] + (128,), dtype=torch.int32,
-                            device=dev)
+        cls_v = torch.zeros(m.shape, dtype=torch.int64, device=dev)
+        cls_w = torch.zeros(m.shape, dtype=torch.int32, device=dev)
         for f in range(8):
             tab_idx = 7 * f + wl - 1
             gs, nc, bits, signed = (int(x) for x in T.SPECTRA_TABS[tab_idx])
@@ -206,16 +204,90 @@ def _spec_group_fields(mant, spec_tab):
             flag = ((gi % gs == 0) & (gs != 1)).to(torch.int64)
             v = (flag << (clen + sw)) + (code << sw) + signpack
             w = flag + clen + sw
-            pad = 128 - ncodes
+            pad = ln - ncodes
             if pad:
                 v = F.pad(v, (0, pad))
                 w = F.pad(w, (0, pad))
-            sel = (fam == f)[..., None]
+            sel = ((fam == f) & in_nq[:, q0:q1])[..., None]
             cls_v = torch.where(sel, v, cls_v)
             cls_w = torch.where(sel, w.to(torch.int32), cls_w)
-        vals[:, q0:q1] = cls_v
-        wids[:, q0:q1] = cls_w
-    return vals, wids
+        vals.append(cls_v.reshape(n, -1))
+        wids.append(cls_w.reshape(n, -1))
+    values, widths = torch.cat(vals, 1), torch.cat(wids, 1)
+    offsets = (pos[:, None] + _excl_cumsum(widths)).to(torch.int32)
+    return values, widths, offsets, widths.sum(-1, dtype=torch.int32)
+
+
+def _spec_book():
+    """Kernel I's tables as int32 words (``csrc/at3p_spectrum.cu``): per
+    (family, wordlen) table 7 * family + wordlen - 1 its gs | nc << 8 |
+    bits << 16 | signed << 24; per QU its start | length << 12 | wordlen
+    << 20; per 16 slots their QU; then the 56 codebooks used, code | length
+    << 12 in 16 bits an entry, two entries a word."""
+    tabs = T.SPECTRA_TABS[:56].astype(np.int64)
+    params = tabs[:, 0] | tabs[:, 1] << 8 | tabs[:, 2] << 16 | tabs[:, 3] << 24
+    geom = (T.SPECS_START.astype(np.int64) | T.SPECS_PER_BLOCK << 12
+            | T.FIXED_WORDLEN.astype(np.int64) << 20)
+    qu_of = np.repeat(np.arange(32), T.SPECS_PER_BLOCK // 16)
+    code, length = T.SPEC_CODE[:56], T.SPEC_LEN[:56]
+    if code.max() >= 1 << 12 or code.min() < 0 or length.max() >= 1 << 4 \
+            or length.min() < 0:
+        raise ValueError("kernel I: a codeword does not fit 12 + 4 bits")
+    if not np.isin(tabs[:, 0], (1, 2, 4)).all():
+        raise ValueError("kernel I: a group size is not 1, 2 or 4")
+    entries = (code | length << 12).astype(np.uint16).reshape(-1)
+    return np.concatenate([params, geom, qu_of,
+                           entries.view(np.int32)]).astype(np.int32)
+
+
+def _spectrum_fields_cuda(mant, spec_tab, num_qu, pos):
+    """Kernel I's launch (``csrc/at3p_spectrum.cu``)."""
+    n = mant.shape[0]
+    i32 = torch.int32
+    if mant.dtype != i32 or mant.dim() != 3 or tuple(mant.shape[1:]) != (32, 128) \
+            or spec_tab.dtype != i32 or tuple(spec_tab.shape) != (n, 32) \
+            or any(t.dtype != i32 or tuple(t.shape) != (n,)
+                   for t in (num_qu, pos)):
+        raise ValueError("spectrum_fields: need mant [F, 32, 128], spec_tab "
+                         "[F, 32], num_qu and pos [F], all int32")
+    mant, spec_tab, num_qu, pos = (t.contiguous() for t in
+                                   (mant, spec_tab, num_qu, pos))
+    dev = mant.device
+    book = _table("spec_book", dev)
+    values = torch.empty((n, 2048), dtype=torch.int64, device=dev)
+    widths = torch.empty((n, 2048), dtype=i32, device=dev)
+    offsets = torch.empty((n, 2048), dtype=i32, device=dev)
+    bits = torch.empty((n,), dtype=i32, device=dev)
+    kernels.require_cuda("spectrum_fields", mant, spec_tab, num_qu, pos, book,
+                         values, widths, offsets, bits, align=4)
+    if mant.data_ptr() % 16:
+        raise ValueError("spectrum_fields: mant not 16-byte aligned")
+    kernels.check(kernels.library().at3p_spectrum_fields(
+        mant.data_ptr(), spec_tab.data_ptr(), num_qu.data_ptr(), pos.data_ptr(),
+        book.data_ptr(), values.data_ptr(), widths.data_ptr(),
+        offsets.data_ptr(), bits.data_ptr(), n, book.numel(),
+        kernels.stream_ptr(mant)), "spectrum_fields")
+    trace.count("launch.at3p_spectrum")
+    return values, widths, offsets, bits
+
+
+@trace.span("spectrum_fields")
+def spectrum_fields(mant, spec_tab, num_qu, pos):
+    """The spectrum section of one channel, one merged field per VLC code
+    group (group flag, code and sign bits).
+
+    mant [F, 32, 128], spec_tab [F, 32] (family 0..7), num_qu [F] and pos
+    [F] (the section's first bit) int32.  Returns values [F, 2048] int64,
+    widths and absolute bit offsets [F, 2048] int32 and the section's bits
+    [F] int32: code group g of QU q sits at slot SPECS_START[q] + g (a QU
+    of ln lines has at most ln groups); a slot past its QU's groups or of a
+    QU at or past num_qu has value and width 0; offsets run in slot order.
+
+    A CPU tensor takes ``spectrum_fields_torch``; a CUDA tensor launches
+    kernel I or raises."""
+    if mant.device.type == "cpu":
+        return spectrum_fields_torch(mant, spec_tab, num_qu, pos)
+    return _spectrum_fields_cuda(mant, spec_tab, num_qu, pos)
 
 
 # --- tonal block -----------------------------------------------------------
@@ -460,10 +532,10 @@ def pack_device(planes, channels):
     # spectra + power stubs per channel
     npwr = _table("npwr", dev)[num_qu.long()]             # [F]
     for ch in range(channels):
-        sv, sw = _spec_group_fields(mant[ch], spec_tab[ch])
-        sw_flat = torch.where(in_nq[:, :, None], sw, 0).reshape(f, -1)
-        emit(sv.reshape(f, -1), sw_flat, pos[:, None] + _excl_cumsum(sw_flat))
-        pos = pos + sw_flat.sum(-1)
+        sv, sw, so, sbits = spectrum_fields(mant[ch], spec_tab[ch], num_qu,
+                                            pos.to(torch.int32))
+        emit(sv, sw, so)
+        pos = pos + sbits
         pw = torch.where(torch.arange(5, device=dev)[None, :] < npwr[:, None],
                          4, 0)
         emit(full(5, 15), pw, pos[:, None] + _excl_cumsum(pw))

@@ -104,6 +104,43 @@ def deposit_case(seed, total_bytes, f=6, k=256):
             offsets[:, perm].astype(np.int32), np.flatnonzero(fits))
 
 
+def spectrum_case(seed, f=64):
+    """Inputs of ATRAC3+'s ``spectrum_fields`` (mant [f, 32, 128], spec_tab
+    [f, 32], num_qu [f] int32 numpy) that reach every branch of its routes.
+
+    Frame i codes QU q with family (i + q) % 8, so every (wordlen, family)
+    table comes up in each 8 frames, and keeps (7 i) % 32 + 1 QUs, every
+    count from 1 to 32 in 32 frames.  A QU's mantissas lie in the
+    encoder's range for its wordlen, |m| <= round(0.99999 * INV_MANT_TAB[wl])
+    (1, 2, 3, 5, 7, 14, 28: scaled values stay inside +-0.99999, and every
+    group of them has a codeword in all 8 tables), drawn by frame and QU:
+    uniform, at the range's two ends, all zero, or sparse (a quarter
+    nonzero).  Lines past a QU's length hold stray values that no route
+    may read."""
+    from atracdenc_tpu_torch.models.atrac3p import tables as T
+    rng = np.random.default_rng(seed)
+    mant = rng.integers(-999, 1000, (f, 32, 128)).astype(np.int32)
+    spec_tab = ((np.arange(f)[:, None] + np.arange(32)[None, :]) % 8).astype(np.int32)
+    num_qu = ((7 * np.arange(f)) % 32 + 1).astype(np.int32)
+    for q in range(32):
+        wl, ln = int(T.FIXED_WORDLEN[q]), int(T.SPECS_PER_BLOCK[q])
+        hi = int(np.round(np.float32(0.99999) * T.INV_MANT_TAB[wl]))
+        lo = -hi
+        for i in range(f):
+            mode = (i + q // 8) % 4
+            if mode == 0:
+                m = rng.integers(lo, hi + 1, ln)
+            elif mode == 1:
+                m = np.where(rng.random(ln) < 0.5, lo, hi)
+            elif mode == 2:
+                m = np.zeros(ln, np.int64)
+            else:
+                m = np.where(rng.random(ln) < 0.25,
+                             rng.integers(lo, hi + 1, ln), 0)
+            mant[i, q, :ln] = m
+    return mant, spec_tab, num_qu
+
+
 def gha_lanes(seed, lanes=4096):
     """Inputs for the ATRAC3+ GHA greedy (``gha.greedy``): x [L, 128] f32
     of 0 to 4 tones a lane (anywhere on the 2048-point grid and between its

@@ -4,10 +4,10 @@
 
 Phases (each asserts; any failure exits non-zero):
   1. device   — CUDA present; torch / CUDA versions, card name and power limit
-  2. build    — nvcc builds csrc/*.cu (kernels A to H) from this
+  2. build    — nvcc builds csrc/*.cu (kernels A to I) from this
                 checkout, one nvcc per source, all at once; prints ptxas's
                 registers, shared memory, stack and spills of every kernel
-                (A to H)
+                (A to I)
   3. kernels  — each kernel against its plain PyTorch version on the inputs
                 its path gives it: A, B, C at the ATRAC3 main path's 64
                 streams x 2 ch x 256 frames (A vlc equal and err within 4
@@ -33,7 +33,12 @@ Phases (each asserts; any failure exits non-zero):
                 on >= 99.5% of lanes, timed beside its bound (the
                 lane-rounds it computed x 524,288 FLOP at 67 TFLOP/s) and
                 the plain ``_greedy``, with the lane-rounds' share of the
-                plain version's and a SHA-256 of its planes
+                plain version's and a SHA-256 of its planes; I (ATRAC3+'s
+                spectrum fields, ``device_pack.spectrum_fields``) on both
+                channels' inputs of the same call (32,768 frames a
+                channel), values, widths, offsets and bits equal its plain
+                version, timed beside its bound (the bytes it reads and
+                writes) and the plain version, with a SHA-256 of its planes
   4. golden   — tests/golden encodes on CUDA against the reference frames:
                 ATRAC3 identity floors 0.99, 0.98, 0.85, with the A + B
                 memo and again with the fused memo (kernel D); ATRAC1 0.93
@@ -80,10 +85,10 @@ Phases (each asserts; any failure exits non-zero):
                 GHA (mask 7), through ``encode_frames_bytes`` (encode +
                 device packer), warm, then timed three times; every kernel
                 counter zeroed just before and read just after (ATRAC3+ runs
-                none of A to F, and G once a call); the bytes equal
-                encode_track + host ``frame.pack`` stream by stream (cut to
-                4 streams when the host part would pass 60 s), and their
-                SHA-256; stream 0
+                none of A to F, G once a call, H 16 times, I twice); the
+                bytes equal encode_track + host ``frame.pack`` stream by
+                stream (cut to 4 streams when the host part would pass
+                60 s), and their SHA-256; stream 0
                 decoded on CUDA within 1e-5 of its CPU decode, finite,
                 within +-1; one more encode under torch.profiler: device
                 busy ms, the top device kernels and the launch count
@@ -279,24 +284,32 @@ MESH_RANKS = 4                             # phase 12: dp 2 x sp 2 on one card
 H_FLOP = 128 * 1024 * 2 * 2                # kernel H: FLOP a lane-round
 
 
-def gha_kernel_check(x, row):
-    """Phase 3's kernel H: ``gha.greedy``'s two passes captured from one
+def at3p_cell_calls(x):
+    """The inputs of kernels H (``gha.greedy``, both passes) and I
+    (``device_pack.spectrum_fields``, one a channel) captured from one
     ``encode_chunk_bytes`` call at the ``atrac3plus.batch`` cell's shape
-    (64 tracks x 512 frames of ``x`` repeated), each against the plain
+    (64 tracks x 512 frames of ``x`` repeated): {"H": [...], "I": [...]}."""
+    from atracdenc_tpu_torch.models.atrac3p import device_pack as at3p_pack
+    from atracdenc_tpu_torch.models.atrac3p import encoder as at3p_encoder
+    from atracdenc_tpu_torch.models.atrac3p import gha
+    from atracdenc_tpu_torch.trace_encode import capture
+    kc = 512
+    xc = x.repeat(1, 1, -(-kc * 2048 // x.shape[-1]))[..., :kc * 2048]
+    xc = xc.contiguous()
+    return capture([(gha, "greedy", "H"), (at3p_pack, "spectrum_fields", "I")],
+                   lambda: at3p_encoder.encode_chunk_bytes(
+                       xc, None, xc[..., :2048].contiguous()))
+
+
+def gha_kernel_check(passes, row):
+    """Phase 3's kernel H: ``gha.greedy``'s two passes of one
+    ``atrac3plus.batch`` call (``at3p_cell_calls``), each against the plain
     ``_greedy`` (inactive lanes masked) and timed; ``row`` as phase 3's.
     -> the log line."""
     import torch
     from atracdenc_tpu_torch import trace
-    from atracdenc_tpu_torch.models.atrac3p import encoder as at3p_encoder
     from atracdenc_tpu_torch.models.atrac3p import gha
-    from atracdenc_tpu_torch.trace_encode import capture, cuda_ms
-    kc = 512
-    xc = x.repeat(1, 1, -(-kc * 2048 // x.shape[-1]))[..., :kc * 2048]
-    xc = xc.contiguous()
-    passes = capture([(gha, "greedy", "H")], lambda: at3p_encoder
-                     .encode_chunk_bytes(xc, None, xc[..., :2048].contiguous()))
-    passes = passes["H"]
-    del xc
+    from atracdenc_tpu_torch.trace_encode import cuda_ms
     assert len(passes) == 2, len(passes)
     equal, lanes_all, rounds, outs = [], 0, 0, []
     for a, kw in passes:
@@ -336,6 +349,41 @@ def gha_kernel_check(x, row):
             f"kernel {h_ms:.3f} ms, plain {h_pms:.3f} ms, {h_bound} for "
             f"{rounds} lane-rounds = {rounds / offered:.4f} of the plain "
             f"version's {offered}; sha256 {digest(*outs)}")
+
+
+def spectrum_kernel_check(calls, row):
+    """Phase 3's kernel I: ``spectrum_fields`` on both channels' inputs of
+    one ``atrac3plus.batch`` call (``at3p_cell_calls``), values, widths,
+    offsets and bits equal to ``spectrum_fields_torch``, timed beside its
+    bound (the lines it reads, its other inputs and its outputs, once) and
+    the plain version; ``row`` as phase 3's.  -> the log line."""
+    import torch
+    from atracdenc_tpu_torch.models.atrac3p import device_pack as at3p_pack
+    from atracdenc_tpu_torch.trace_encode import cuda_ms
+    args = [a for a, _ in calls]
+    assert len(args) == 2, len(args)                 # one a channel
+    outs = [at3p_pack.spectrum_fields(*a) for a in args]
+    for a, out in zip(args, outs):
+        for name, g, p in zip(("values", "widths", "offsets", "bits"), out,
+                              at3p_pack.spectrum_fields_torch(*a)):
+            assert torch.equal(g, p), f"kernel I: {name} differs"
+    torch.cuda.empty_cache()
+
+    def both(fn):                   # keeps no output: the allocator reuses it
+        for a in args:
+            fn(*a)
+    i_ms = cuda_ms(lambda: both(at3p_pack.spectrum_fields), 20, 3)
+    i_pms = cuda_ms(lambda: both(at3p_pack.spectrum_fields_torch), 2, 1)
+    torch.cuda.empty_cache()
+    n_bytes = sum(4 * 2048 * a[0].shape[0] + nbytes(*a[1:]) for a in args) \
+        + sum(nbytes(*o) for o in outs)
+    i_bound = row("at3p_spectrum_fields", "at3p_spectrum.cu", None, 0.0, i_ms,
+                  i_pms, n_bytes, 0)
+    return (f"[3 kernels] I spectrum_fields, both channels of one "
+            f"atrac3plus.batch call ({args[0][0].shape[0]} frames a channel): "
+            f"values, widths, offsets and bits equal its plain version; kernel "
+            f"{i_ms:.4f} ms, plain {i_pms:.3f} ms, {i_bound} a call; sha256 "
+            f"{digest(*(t for o in outs for t in o))}")
 
 
 def mesh_rank(rank, coordinator, out_dir, spec):
@@ -1048,7 +1096,8 @@ def main():
     log(f"[2 build] {os.path.relpath(path, ROOT)} built in {build_s:.1f} s")
     for fn, use in kernels.ptxas_usage(report).items():
         if any(k in fn for k in ("quant_cost", "greedy_scan", "rate_control",
-                                 "bisect", "at1_allocate", "deposit", "gha_")):
+                                 "bisect", "at1_allocate", "deposit", "gha_",
+                                 "spectrum")):
             log(f"[2 build] ptxas {fn}: {use.get('registers')} registers, "
                 f"{use.get('smem', 0)} B shared memory, {use.get('stack')} B "
                 f"stack, {use.get('spill')} B spill stores")
@@ -1240,7 +1289,10 @@ def main():
             f"{g_pms:.3f} ms, {g_bound} a call; sha256 {digest(*outs)}")
         del g_args, outs
         torch.cuda.empty_cache()
-    log(gha_kernel_check(x, row))
+    at3p_calls = at3p_cell_calls(x)
+    log(gha_kernel_check(at3p_calls.pop("H"), row))
+    log(spectrum_kernel_check(at3p_calls.pop("I"), row))
+    del at3p_calls
     del calls, b_calls, a_args, c_args, d_args, e_args, outk
     torch.cuda.empty_cache()
 
@@ -1602,6 +1654,8 @@ def main():
     assert trace.counter("launch.deposit") == 3, "G: one deposit a call"
     launches["gha_greedy"] = trace.counter("launch.gha_greedy") // 3
     assert launches["gha_greedy"] == 16, "H: 8 rounds a pass, two passes"
+    launches["at3p_spectrum_fields"] = trace.counter("launch.at3p_spectrum") // 3
+    assert launches["at3p_spectrum_fields"] == 2, "I: one launch a channel"
     fr11 = runtime.to_numpy(b11)
     assert fr11.shape == (s11, f11, 2048), fr11.shape
     t0 = time.perf_counter()
