@@ -458,6 +458,16 @@ def _pack(planes, frame_bytes, js):
 
     if not js:
         return torch.cat([bufs[0], bufs[0] if c == 1 else bufs[1]], dim=1)
-    j = torch.arange(frame_bytes, device=dev)[None, :]
-    boundary = (half + shift)[:, None]
-    return torch.where(j < boundary, bufs[0], bufs[1].flip(1))
+    return js_assemble(bufs[0], bufs[1], shift)
+
+
+@trace.span("js_assemble")
+def js_assemble(buf0, buf1, shift):
+    """A JS frame from its two whole-frame deposits [N, frame_bytes]:
+    channel 0's bytes before the boundary frame_bytes / 2 + shift [N],
+    channel 1's bytes reversed from the frame's end after it
+    (atrac3_bitstream.cpp:899-914)."""
+    frame_bytes = buf0.shape[1]
+    j = torch.arange(frame_bytes, device=buf0.device)[None, :]
+    boundary = (frame_bytes // 2 + shift)[:, None]
+    return torch.where(j < boundary, buf0, buf1.flip(1))

@@ -47,6 +47,48 @@ def band_frames(pcm):
     return bands.transpose(-3, -2)
 
 
+@trace.span("ms_matrix")
+def ms_matrix(bands, next_head):
+    """M/S matrixing in the band-sample domain (atrac3denc.cpp:665-677):
+    channel 0 of [S, 2, ...] becomes (L + R) / 2, channel 1 (L - R) / 2;
+    of the chunk's band samples and of the look-ahead head alike."""
+    def ms(x):
+        return torch.stack([(x[:, 0] + x[:, 1]) * 0.5,
+                            (x[:, 0] - x[:, 1]) * 0.5], dim=1)
+    return ms(bands), ms(next_head)
+
+
+def calc_ms_shift(frame_loud, header_bits, frame_bytes):
+    """CalcMSBytesShift (atrac3_bitstream.cpp:800-828): the bytes a JS
+    frame moves from the side channel to the mid channel, set by mid's
+    share of the frame's loudness and bounded by what the headers leave.
+    frame_loud f32 [S, C, F], header_bits int32 [S, C, F] -> int32 [S, F];
+    a mono input's empty side channel gets the minimum."""
+    c = frame_loud.shape[1]
+    half = frame_bytes // 2
+    h1 = header_bits[:, 1] if c == 2 else 14 + 2 + 3
+    total_used = 12 + header_bits[:, 0] + h1
+    max_shift = half - (1 + torch.div(total_used - 1, 8,
+                                      rounding_mode="floor"))
+    if c == 1:
+        return max_shift.to(torch.int32)
+    total_loud = frame_loud[:, 0] + frame_loud[:, 1]
+    ratio = torch.where(total_loud > 0,
+                        frame_loud[:, 0] / total_loud - 0.5, 0.0)
+    return torch.clamp(torch.round(frame_bytes * ratio).to(torch.int32),
+                       -max_shift, max_shift)
+
+
+def channel_targets(ms_shift, header_bits, frame_bytes):
+    """Each channel's bit target, 8 * (frame_bytes / 2 +- ms_shift) less
+    its header and 6 bits, at least 1: ms_shift int32 [S, F], header_bits
+    [S, C, F] -> int32 [S * C, F]."""
+    s, c, f = header_bits.shape
+    shift_per_ch = torch.stack([ms_shift, -ms_shift], dim=1)[:, :c]
+    return torch.clamp(8 * (frame_bytes // 2 + shift_per_ch) - 6
+                       - header_bits, min=1).to(torch.int32).reshape(s * c, f)
+
+
 def spread_from_sfi(sfi):
     """AnalizeScaleFactorSpread over all 32 blocks
     (atrac_psy_common.cpp:101-124)."""
@@ -142,15 +184,10 @@ def encode_frames_chunk(pcm, state=None, next_pcm=None, frame_bytes=384,
             la = torch.cat([x[..., -2048:], next_pcm.reshape(s, c, -1)],
                            dim=-1)
             next_head = filterbank.analysis(la * 0.25)[..., -256:-128]
-        if js and c == 2:
-            # M/S matrixing in the band-sample domain (atrac3denc.cpp:665-677)
-            bands = torch.stack([(bands[:, 0] + bands[:, 1]) * 0.5,
-                                 (bands[:, 0] - bands[:, 1]) * 0.5], dim=1)
-            next_head = torch.stack(
-                [(next_head[:, 0] + next_head[:, 1]) * 0.5,
-                 (next_head[:, 0] - next_head[:, 1]) * 0.5], dim=1)
-        bands = bands.reshape(s * c, f, 4, 256)
-        next_head = next_head.reshape(s * c, 4, 128)
+    if js and c == 2:
+        bands, next_head = ms_matrix(bands, next_head)
+    bands = bands.reshape(s * c, f, 4, 256)
+    next_head = next_head.reshape(s * c, 4, 128)
 
     if no_gain_control:
         gain_npoints = torch.zeros((s * c, f, 4), dtype=torch.int32, device=dev)
@@ -206,33 +243,22 @@ def encode_frames_chunk(pcm, state=None, next_pcm=None, frame_bytes=384,
     spread = spread_from_sfi(sfi)
 
     # per-channel bit budget (WriteSoundUnit, atrac3_bitstream.cpp:830-892)
-    half = frame_bytes // 2
     id_bits = runtime.from_host([14 if (js and ch == 1) else 6
                                  for ch in range(c)], dev,
                                 torch.int32)[None, :, None]
     header_bits = id_bits + 2 + torch.sum(
         3 + gain_npoints.reshape(s, c, f, 4) * 9, dim=-1, dtype=torch.int32)
     if js:
-        # M/S byte-budget shift (CalcMSBytesShift, atrac3_bitstream.cpp:
-        # 800-828); a mono input's empty side channel gets the minimum
-        h1 = header_bits[:, 1] if c == 2 else 14 + 2 + 3
-        total_used = 12 + header_bits[:, 0] + h1
-        max_shift = half - (1 + torch.div(total_used - 1, 8,
-                                          rounding_mode="floor"))
-        if c == 2:
-            total_loud = frame_loud[:, 0] + frame_loud[:, 1]
-            ratio = torch.where(total_loud > 0,
-                                frame_loud[:, 0] / total_loud - 0.5, 0.0)
-            ms_shift = torch.clamp(
-                torch.round(frame_bytes * ratio).to(torch.int32),
-                -max_shift, max_shift)
-        else:
-            ms_shift = max_shift.to(torch.int32)
+        with trace.span("ms_shift"):
+            ms_shift = calc_ms_shift(frame_loud, header_bits, frame_bytes)
+            target = channel_targets(ms_shift, header_bits, frame_bytes)
+            trace.count("at3.js_frames", s * f)
+            shifted = trace.device_counter("at3.js_shift_bytes", dev)
+            if shifted is not None:
+                shifted.add_(torch.sum(torch.abs(ms_shift)))
     else:
         ms_shift = torch.zeros((s, f), dtype=torch.int32, device=dev)
-    shift_per_ch = torch.stack([ms_shift, -ms_shift], dim=1)[:, :c]
-    target = torch.clamp(8 * (half + shift_per_ch) - 6 - header_bits,
-                         min=1).to(torch.int32).reshape(s * c, f)
+        target = channel_targets(ms_shift, header_bits, frame_bytes)
 
     qt = quant_tensors(scaled, k["mask"], fused_memo)
     loud_cf = loudness[:, None, :].expand(s, c, f).reshape(s * c, f)
