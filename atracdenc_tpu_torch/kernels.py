@@ -58,6 +58,9 @@ _SIGNATURES = {
     # (mant, spec_tab, num_qu, pos, book, values, widths, offsets, bits,
     #  n_frames, book_len, stream)
     "at3p_spectrum_fields": [_P] * 9 + [_L, _I, _P],
+    # (bands, prev_tail, next_head, tiles, hcol, gain, lo, hi, hfr,
+    #  channels, frames, stream)
+    "at3_gain_analysis": [_P] * 9 + [_I, _I, _P],
 }
 
 

@@ -8,13 +8,17 @@ Python loops over [C, F, 4] lanes; the cross-frame context (LastLevel,
 LastHpfEnergy, LastTarget) resolves with shifts and hold-last-valid gathers.
 
 Layout: bands [C, F, 4, 256] with C any flattened stream x channel axis.
+
+On a card the upsampler and AnalyzeGain are one CUDA kernel, J
+(``csrc/at3_gain.cu``, ``gain_analysis``); on the CPU they are the tensor
+code below (``gain_analysis_torch``).
 """
 import functools
 
 import numpy as np
 import torch
 
-from atracdenc_tpu_torch import trace
+from atracdenc_tpu_torch import kernels, trace
 from atracdenc_tpu_torch.models.atrac3 import tables as T
 from .mdct import gain_divisors
 
@@ -99,17 +103,21 @@ def _region_matrices_np():
 
 @functools.lru_cache(maxsize=None)
 def _consts(dev):
-    m, e, ef = _region_matrices_np()
-    return {"region": torch.as_tensor(m, device=dev),
-            "E": torch.as_tensor(e, device=dev),
-            "Ef": torch.as_tensor(ef, device=dev),
-            "level": torch.as_tensor(T.GAIN_LEVEL, device=dev),
+    return {"level": torch.as_tensor(T.GAIN_LEVEL, device=dev),
             "enc_win": torch.as_tensor(T.ENCODE_WINDOW, device=dev)}
+
+
+@functools.lru_cache(maxsize=None)
+def _matrices(dev):
+    """The plain route's upsampler matrices (kernel J packs its own)."""
+    return dict(zip(("region", "E", "Ef"),
+                    (torch.as_tensor(a, device=dev)
+                     for a in _region_matrices_np())))
 
 
 def upsample_region(x):
     """[..., 512] -> (upsampled region [..., 2048], high_freq_ratio [...])."""
-    c = _consts(x.device)
+    c = _matrices(x.device)
     region = torch.matmul(x, c["region"])
     sp = torch.matmul(x, c["E"])
     spf = torch.matmul(x, c["Ef"])
@@ -344,22 +352,98 @@ def init_ctx(c, dev):
                                      device=dev)}
 
 
-def assemble_up_in(bands, ctx, next_head=None):
+def assemble_up_in(bands, prev_tail, next_head=None):
     """Upsampler windows [C, F, 4, 512] = (prev 128 | frame 256 | next 128),
-    with the chunk-carry tail from `ctx` and the lookahead `next_head`
-    ([C, 4, 128], zeros at track end)."""
+    with the chunk-carry tail `prev_tail` ([C, 4, 128]) and the lookahead
+    `next_head` ([C, 4, 128], zeros at track end)."""
     c, f, nb, _ = bands.shape
     if next_head is None:
         next_head = torch.zeros((c, nb, 128), dtype=bands.dtype,
                                 device=bands.device)
     stream = bands.transpose(1, 2).reshape(c, nb, f * 256)
-    prev128 = torch.cat([ctx["prev_tail"], stream[..., :-128]], dim=-1)
+    prev128 = torch.cat([prev_tail, stream[..., :-128]], dim=-1)
     next128 = torch.cat([stream[..., 256:], next_head,
                          torch.zeros_like(stream[..., :128])], dim=-1)
     up_in = torch.cat([prev128.reshape(c, nb, f, 256)[..., :128],
                        stream.reshape(c, nb, f, 256),
                        next128.reshape(c, nb, f, 256)[..., :128]], dim=-1)
     return up_in.transpose(1, 2)                          # [C, F, 4, 512]
+
+
+def gain_analysis_torch(bands, prev_tail, next_head=None):
+    """Plain version of ``gain_analysis``: the windows assembled, the
+    region and spectra as matmuls, AnalyzeGain on the region."""
+    region, hfr = upsample_region(assemble_up_in(bands, prev_tail, next_head))
+    return analyze_gain(region) + (hfr,)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_consts_np():
+    """Kernel J's constants: the region matrix and the spectrum matrix
+    without its two all-zero columns (the imaginary parts of DC and
+    Nyquist) as ten N-tiles [10, 512, 256], and h of each spectrum column
+    [512].  Within an N-tile, thread t of 32 holds columns 8t..8t+7 and
+    reads them as two float4 at 4t and 128 + 4t, so each tile's columns are
+    stored in that order."""
+    region, e, _ = _region_matrices_np()
+    keep = np.r_[0:257, 258:513]
+    if np.any(np.delete(e, keep, axis=1)):
+        raise ValueError("kernel J: a dropped spectrum column is not zero")
+    cols = np.concatenate([region, e[:, keep]], axis=1)   # [512, 2560]
+    t = np.arange(32)[:, None]
+    perm = np.concatenate([(8 * t + np.arange(4)).ravel(),
+                           (8 * t + 4 + np.arange(4)).ravel()])
+    tiles = cols.reshape(512, 10, 256)[:, :, perm].transpose(1, 0, 2)
+    h = _hpf_response()
+    return np.ascontiguousarray(tiles), np.concatenate([h, h])[keep]
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_consts(dev):
+    return tuple(torch.as_tensor(a, device=dev) for a in _kernel_consts_np())
+
+
+def _gain_analysis_cuda(bands, prev_tail, next_head):
+    """Kernel J's launch (``csrc/at3_gain.cu``)."""
+    c, f = bands.shape[:2]
+    heads = [] if next_head is None else [next_head]
+    if bands.dtype != torch.float32 or tuple(bands.shape[2:]) != (4, 256) \
+            or any(t.dtype != torch.float32 or tuple(t.shape) != (c, 4, 128)
+                   for t in [prev_tail] + heads):
+        raise ValueError("gain_analysis: need bands [C, F, 4, 256], prev_tail "
+                         "and next_head [C, 4, 128], all float32")
+    bands, prev_tail = bands.contiguous(), prev_tail.contiguous()
+    heads = [t.contiguous() for t in heads]
+    tiles, hcol = _kernel_consts(bands.device)
+    gain = torch.empty((c, f, 4, 32), dtype=torch.float32, device=bands.device)
+    lo, hi = torch.empty_like(gain), torch.empty_like(gain)
+    hfr = torch.empty((c, f, 4), dtype=torch.float32, device=bands.device)
+    kernels.require_cuda("gain_analysis", bands, prev_tail, *heads, tiles,
+                         hcol, gain, lo, hi, hfr)
+    kernels.check(kernels.library().at3_gain_analysis(
+        bands.data_ptr(), prev_tail.data_ptr(),
+        heads[0].data_ptr() if heads else None, tiles.data_ptr(),
+        hcol.data_ptr(), gain.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        hfr.data_ptr(), c, f, kernels.stream_ptr(bands)), "gain_analysis")
+    trace.count("launch.at3_gain")
+    return gain, lo, hi, hfr
+
+
+@trace.span("gain_analysis")
+def gain_analysis(bands, prev_tail, next_head=None):
+    """The upsampler and AnalyzeGain of every window of a chunk.
+
+    bands [C, F, 4, 256]; prev_tail [C, 4, 128] the previous chunk's last
+    band halves; next_head [C, 4, 128] the lookahead (None: zeros).
+    Returns (gain [C, F, 4, 32], lo, hi, hfr [C, F, 4]): each subframe's
+    RMS, the inter-quartiles of its 8 micro-chunk RMS values and the
+    window's high-frequency ratio.
+
+    A CPU tensor takes ``gain_analysis_torch``; a CUDA tensor launches
+    kernel J or raises."""
+    if bands.device.type == "cpu":
+        return gain_analysis_torch(bands, prev_tail, next_head)
+    return _gain_analysis_cuda(bands, prev_tail, next_head)
 
 
 @trace.span("gain_control")
@@ -376,10 +460,7 @@ def gain_control(bands, ctx=None, next_head=None, debug=False):
     if ctx is None:
         ctx = init_ctx(c, dev)
     gl = _consts(dev)["level"]
-    up_in = assemble_up_in(bands, ctx, next_head)
-
-    region, hfr = upsample_region(up_in)
-    gain, lo, hi = analyze_gain(region)
+    gain, lo, hi, hfr = gain_analysis(bands, ctx["prev_tail"], next_head)
     valid = hfr >= HIGH_FREQ_THRESHOLD                    # CalcCurve ran here
 
     # cross-frame context (shift / hold-last-valid over the frame axis)

@@ -280,3 +280,149 @@ def gha_rounds_of(valid, max_keep, active):
     cap = torch.clamp(max_keep, 0, valid.shape[-1])
     n = valid.sum(-1)
     return int(torch.where(active, torch.minimum(n + 1, cap), 0).sum())
+
+
+def gain_case(seed, c=3, f=5):
+    """Inputs of ATRAC3's ``gain.gain_analysis``: bands [c, f, 4, 256],
+    prev_tail and next_head [c, 4, 128] f32 numpy.  Each (channel, band)
+    draws a kind, kept over its frames and tails: noise, a sine under or
+    over the high-pass cut (800 Hz of the band's 11,025 Hz), bursts of
+    noise in one quarter of a frame (transients) or decaying noise; each
+    band-frame a level from -80 to 0 dB or, one in eight, digital
+    silence."""
+    rng = np.random.default_rng(seed)
+    n = np.arange(256 * (f + 1))
+    bands = np.zeros((c, 4, 256 * (f + 1)))
+    for ch, b in np.ndindex(c, 4):
+        kind = rng.integers(0, 5)
+        if kind == 0:
+            x = rng.standard_normal(n.size)
+        elif kind in (1, 2):
+            hz = rng.uniform(50, 700) if kind == 1 else rng.uniform(900, 5000)
+            x = np.sin(2 * np.pi * hz * n / 11025.0 + rng.uniform(0, 6.3))
+        elif kind == 3:
+            x = 0.01 * rng.standard_normal(n.size)
+            for fr in range(f + 1):
+                q = 256 * fr + 64 * rng.integers(0, 4)
+                x[q:q + 64] += rng.standard_normal(64)
+        else:
+            x = rng.standard_normal(n.size) * np.exp(-(n % 256)
+                                                     / rng.uniform(10, 200))
+        level = 10.0 ** rng.uniform(-4, 0, f + 1)
+        level[rng.random(f + 1) < 0.125] = 0.0
+        bands[ch, b] = x * np.repeat(level, 256)
+    frames = bands[..., 128:128 + 256 * f].reshape(c, 4, f, 256)
+    return (frames.transpose(0, 2, 1, 3).astype(np.float32),
+            bands[..., :128].astype(np.float32),
+            bands[..., 128 + 256 * f:].astype(np.float32))
+
+
+def gain_windows(bands, prev_tail, next_head=None):
+    """Kernel J's window gather (``csrc/at3_gain.cu`` load_windows) in
+    numpy: [C * F * 4, 512], each 16-byte chunk of window w read from the
+    flat array and offset the kernel computes."""
+    c, f = bands.shape[:2]
+    flat_b, flat_p = bands.reshape(-1), prev_tail.reshape(-1)
+    flat_n = None if next_head is None else next_head.reshape(-1)
+    out = np.zeros((c * f * 4, 512), np.float32)
+    for w in range(c * f * 4):
+        cf, b = w >> 2, w & 3
+        fr, ch = cf % f, cf // f
+        for k in range(0, 512, 4):
+            if k < 128:
+                src, o = (flat_b, ((cf - 1) * 4 + b) * 256 + 128 + k) if fr > 0 \
+                    else (flat_p, (ch * 4 + b) * 128 + k)
+            elif k < 384:
+                src, o = flat_b, (cf * 4 + b) * 256 + (k - 128)
+            elif fr < f - 1:
+                src, o = flat_b, ((cf + 1) * 4 + b) * 256 + (k - 384)
+            elif flat_n is not None:
+                src, o = flat_n, (ch * 4 + b) * 128 + (k - 384)
+            else:
+                continue
+            out[w, k:k + 4] = src[o:o + 4]
+    return out
+
+
+def gain_kernel_model(windows, tiles, hcol):
+    """Kernel J's arithmetic on the CPU, as its threads hold it: the ten
+    packed N-tiles ``tiles`` [10, 512, 256] times the windows [W, 512]
+    (torch), thread t of an N-tile taking positions 4t..4t+3 and
+    128+4t..128+4t+3 as its columns 8t..8t+7; a micro-chunk's squares
+    summed in order, a subframe's RMS from its 8 micro sums, the sorting
+    network's ranks 2 and 6, and hfr from the spectrum tiles' squares with
+    h.  -> (region [W, 2048], sp [W, 512], gain, lo, hi [W, 32], hfr [W])."""
+    from atracdenc_tpu_torch.models.atrac3.gain import _NET8
+    t = np.arange(32)[:, None]
+    pos = np.concatenate([4 * t + np.arange(4), 128 + 4 * t + np.arange(4)],
+                         axis=1).ravel()          # column 8t + j at pos[8t + j]
+    prod = torch.einsum("wk,nkp->nwp", windows, tiles)[..., pos]
+    region = prod[:8].permute(1, 0, 2).reshape(-1, 2048)
+    sp = prod[8:].permute(1, 0, 2).reshape(-1, 512)
+    sq = (region * region).reshape(-1, 32, 8, 8)
+    micro = sq[..., 0]
+    for j in range(1, 8):
+        micro = micro + sq[..., j]
+    total = micro[..., 0]
+    for i in range(1, 8):
+        total = total + micro[..., i]
+    gain = torch.sqrt(total / 64.0)
+    xs = [torch.sqrt(micro[..., i] / 8.0) for i in range(8)]
+    for a, b in _NET8:
+        xs[a], xs[b] = torch.minimum(xs[a], xs[b]), torch.maximum(xs[a], xs[b])
+    filt = sp * hcol
+    tot = torch.sum(sp * sp, dim=-1)
+    fil = torch.sum(filt * filt, dim=-1)
+    hfr = torch.where(tot > 0, fil / tot, 0.0)
+    return region, sp, gain, xs[2], xs[6], hfr
+
+
+# Kernel J: the largest gap a plane may show from the plain route, over the
+# window's input RMS (hfr: as it is), from f32 sums of 512 products taken in
+# another order (``gain_gaps``).  On one atrac3-lp2.batch call's 262,144
+# windows of music the H100 measured at most 1.55e-6 (hi) and 4.8e-7 (hfr);
+# a misplaced column or window reads ~1.
+GAIN_TOL = {"gain": 2e-5, "lo": 2e-5, "hi": 2e-5, "hfr": 5e-6}
+
+
+def gain_cell_call(dev, seed=2500000123, streams=64, frames=512):
+    """The windows' inputs of ``gain.gain_analysis`` in one ATRAC3 call at
+    the ``atrac3-lp2.batch`` cell's shape: ``streams`` ``portbench.music``
+    tracks x ``frames`` frames, a track's first chunk with its lookahead,
+    as ``gain_control`` passes them.  -> (bands, prev_tail, next_head)."""
+    from atracdenc_tpu_torch.models.atrac3 import encoder, gain
+    from atracdenc_tpu_torch.trace_encode import capture
+    from portbench import music
+    pcm = music.tracks(streams, 1024 * (frames + 1), seed, dev)
+    pcm = pcm.to(torch.float32) / 32768.0
+    cur = pcm[..., :1024 * frames].contiguous()
+    nxt = pcm[..., 1024 * frames:].contiguous()
+    del pcm
+    (a, kw), = capture([(gain, "gain_control", "J")],
+                       lambda: encoder.encode_frames_chunk(
+                           cur, None, nxt, no_gain_control=False,
+                           no_tonal=False))["J"]
+    return a[0], kw["ctx"]["prev_tail"], kw["next_head"]
+
+
+def gain_gaps(got, want, bands, prev_tail, next_head=None):
+    """Gaps of kernel J's planes (gain, lo, hi, hfr) from the plain route's,
+    as two numbers a plane: the largest |got - want| over the window's input
+    RMS (a sum of 512 products errs with its terms, not its value), and the
+    largest relative gap where want is over 1e-3 of that RMS.  The window's
+    input RMS comes from ``gain.assemble_up_in``."""
+    from atracdenc_tpu_torch.models.atrac3 import gain
+    x = gain.assemble_up_in(bands, prev_tail, next_head)
+    rms = torch.sqrt(torch.mean(x * x, dim=-1))           # [C, F, 4]
+    gaps = {}
+    for name, g, w in zip(("gain", "lo", "hi", "hfr"), got, want):
+        d = (g - w).abs()
+        if name == "hfr":            # a ratio in [0, 1]: its gap as it is
+            gaps[name] = (float(d.max()),) * 2
+            continue
+        s = rms[..., None]
+        scaled = torch.where(s > 0, d / s, torch.where(d > 0, np.inf, 0.0))
+        big = w.abs() > 1e-3 * s
+        rel = torch.where(big, d / w.abs().clamp(min=1e-30), 0.0)
+        gaps[name] = (float(scaled.max()), float(rel.max()))
+    return gaps

@@ -4,10 +4,10 @@
 
 Phases (each asserts; any failure exits non-zero):
   1. device   — CUDA present; torch / CUDA versions, card name and power limit
-  2. build    — nvcc builds csrc/*.cu (kernels A to I) from this
+  2. build    — nvcc builds csrc/*.cu (kernels A to J) from this
                 checkout, one nvcc per source, all at once; prints ptxas's
                 registers, shared memory, stack and spills of every kernel
-                (A to I)
+                (A to J)
   3. kernels  — each kernel against its plain PyTorch version on the inputs
                 its path gives it: A, B, C at the ATRAC3 main path's 64
                 streams x 2 ch x 256 frames (A vlc equal and err within 4
@@ -38,7 +38,16 @@ Phases (each asserts; any failure exits non-zero):
                 channels' inputs of the same call (32,768 frames a
                 channel), values, widths, offsets and bits equal its plain
                 version, timed beside its bound (the bytes it reads and
-                writes) and the plain version, with a SHA-256 of its planes
+                writes) and the plain version, with a SHA-256 of its planes;
+                J (ATRAC3's gain upsampler and AnalyzeGain,
+                ``gain.gain_analysis``) on one ``atrac3-lp2.batch`` call's
+                windows (64 music tracks x 512 frames, 262,144 windows),
+                gain, lo, hi and hfr within ``testing.GAIN_TOL`` of the
+                plain route, timed beside its bound (512 x 2,560
+                multiply-adds a window at 67 TFLOP/s) and the plain route,
+                with the plain route's three GEMMs alone, as the program
+                lays out their windows and on contiguous windows, and a
+                SHA-256 of its planes
   4. golden   — tests/golden encodes on CUDA against the reference frames:
                 ATRAC3 identity floors 0.99, 0.98, 0.85, with the A + B
                 memo and again with the fused memo (kernel D); ATRAC1 0.93
@@ -175,10 +184,10 @@ The last two lines of stdout are the card's nvidia-smi name / power limit
 (preceded by the kernels JSON line) and {"ok": true, "device": {...}}.
 
 The kernels line has one row per kernel.  ``launches`` is the count of the
-path that runs it, read just after that path's run: phase 6 for A, B and C,
-phase 7 for E, phase 9 for D.  F has no caller in the encoder (nor in the
-JAX package), so its path is the one call of phase 3 on C's captured
-inputs, counted alone.  ``bound_ms`` is the larger of the bytes the
+path that runs it, read just after that path's run: phase 6 for A, B, C and
+J (one a call), phase 7 for E, phase 9 for D.  F has no caller in the
+encoder (nor in the JAX package), so its path is the one call of phase 3 on
+C's captured inputs, counted alone.  ``bound_ms`` is the larger of the bytes the
 function moves (each input read once, each output written once) over 3.35
 TB/s and its operations (estimated per element, see ``OPS``) over 67
 TFLOP/s, the H100 SXM's HBM and non-tensor f32 peaks.  Of A's and D's
@@ -384,6 +393,52 @@ def spectrum_kernel_check(calls, row):
             f"values, widths, offsets and bits equal its plain version; kernel "
             f"{i_ms:.4f} ms, plain {i_pms:.3f} ms, {i_bound} a call; sha256 "
             f"{digest(*(t for o in outs for t in o))}")
+
+
+def gain_kernel_check(args, row):
+    """Phase 3's kernel J: ``gain.gain_analysis`` on one ATRAC3 call's
+    windows (``testing.gain_cell_call``) against ``gain_analysis_torch``, timed
+    beside its bound (operations: 512 x 2,560 multiply-adds a window) and
+    the plain route, and the plain route's three GEMMs alone, as the
+    program lays out their windows and on contiguous windows; ``row`` as
+    phase 3's.  -> the log line."""
+    import torch
+    from atracdenc_tpu_torch.models.atrac3 import gain
+    from atracdenc_tpu_torch.testing import GAIN_TOL, gain_gaps
+    from atracdenc_tpu_torch.trace_encode import cuda_ms
+    got = gain.gain_analysis(*args)
+    gaps = gain_gaps(got, gain.gain_analysis_torch(*args), *args)
+    torch.cuda.empty_cache()
+    for name, (scaled, _) in gaps.items():
+        assert scaled <= GAIN_TOL[name], f"kernel J: {name} gap {gaps[name]}"
+    j_ms = cuda_ms(lambda: gain.gain_analysis(*args), 10, 2)
+    p_ms = cuda_ms(lambda: gain.gain_analysis_torch(*args), 3, 1)
+    torch.cuda.empty_cache()
+    c = gain._matrices(args[0].device)
+    up = gain.assemble_up_in(*args)
+    flat = up.reshape(-1, 512).contiguous()
+
+    def gemms(x):                   # keeps no output: the allocator reuses it
+        for m in ("region", "E", "Ef"):
+            torch.matmul(x, c[m])
+    g_ms = cuda_ms(lambda: gemms(up), 3, 1)
+    gc_ms = cuda_ms(lambda: gemms(flat), 3, 1)
+    n_win = flat.shape[0]
+    del up, flat
+    torch.cuda.empty_cache()
+    g_flop = 2 * n_win * 512 * (2048 + 2 * 514)
+    j_bound = row("at3_gain_analysis", "at3_gain.cu", None,
+                  max(v[0] for v in gaps.values()), j_ms, p_ms,
+                  nbytes(*args) + nbytes(*got), 2 * n_win * 512 * 2560)
+    return (f"[3 kernels] J gain_analysis, one atrac3-lp2.batch call "
+            f"({n_win} windows of music): largest gaps from the plain route "
+            f"(over the window's RMS; relative) "
+            f"{', '.join(f'{k} {a:.3e} {r:.3e}' for k, (a, r) in gaps.items())}"
+            f"; kernel {j_ms:.3f} ms, plain {p_ms:.3f} ms, {j_bound} a call; "
+            f"the plain route's three GEMMs alone {g_ms:.3f} ms as the "
+            f"program lays out the windows ({g_flop / g_ms / 1e9:.2f} "
+            f"TFLOP/s), {gc_ms:.3f} ms on contiguous windows "
+            f"({g_flop / gc_ms / 1e9:.2f} TFLOP/s); sha256 {digest(*got)}")
 
 
 def mesh_rank(rank, coordinator, out_dir, spec):
@@ -1097,7 +1152,7 @@ def main():
     for fn, use in kernels.ptxas_usage(report).items():
         if any(k in fn for k in ("quant_cost", "greedy_scan", "rate_control",
                                  "bisect", "at1_allocate", "deposit", "gha_",
-                                 "spectrum")):
+                                 "spectrum", "gain_kernel")):
             log(f"[2 build] ptxas {fn}: {use.get('registers')} registers, "
                 f"{use.get('smem', 0)} B shared memory, {use.get('stack')} B "
                 f"stack, {use.get('spill')} B spill stores")
@@ -1293,6 +1348,8 @@ def main():
     log(gha_kernel_check(at3p_calls.pop("H"), row))
     log(spectrum_kernel_check(at3p_calls.pop("I"), row))
     del at3p_calls
+    from atracdenc_tpu_torch.testing import gain_cell_call
+    log(gain_kernel_check(gain_cell_call(dev), row))
     del calls, b_calls, a_args, c_args, d_args, e_args, outk
     torch.cuda.empty_cache()
 
@@ -1409,9 +1466,11 @@ def main():
     c6 = counts()
     launches = {"quant_cost_plain": c6["A"], "greedy_scan": c6["B"],
                 "rate_control_block": c6["C"], "bisect_block": f_launches,
-                "deposit_fields.at3": trace.counter("launch.deposit")}
+                "deposit_fields.at3": trace.counter("launch.deposit"),
+                "at3_gain_analysis": trace.counter("launch.at3_gain")}
     assert all(c6[k] > 0 for k in "ABC") and c6["D"] == 0, c6
     assert launches["deposit_fields.at3"] == 2, launches    # one a channel
+    assert launches["at3_gain_analysis"] == 1, launches     # one a call
     fr_dev = runtime.to_numpy(dev_bytes)
     t_all_dev = time.perf_counter() - t0
     # encode + host packer, and the device packer alone on the same planes
